@@ -6,10 +6,13 @@ the first N_t updates) and DL (fixed reporting deadline).  RELAY (IPS + APT
 Simulated time is decoupled from wall-clock: device durations come from
 the heterogeneity profiles, availability from the trace substrate.
 
-This slice ports the fused device-resident pipeline
-(``repro_torch.sim.pipeline``) for one simulation.  The host side — the
-round stages below — is numpy with the reference's RNG draw order, so for
-the same config, seed and initial weights every host decision (cohort,
+Two substrates run a simulation: the fused device-resident pipeline
+(``repro_torch.sim.pipeline``, ``fused_rounds=True``) and the per-stage
+flat path below (``_run_loop``: train, collect, aggregate, apply, record),
+which the fused pipeline is held against bit for bit.  Both serve FedAvg
+and YoGi server steps, with or without the SAA kernels.  The host side —
+the round stages below — is numpy with the reference's RNG draw order, so
+for the same config, seed and initial weights every host decision (cohort,
 arrival schedule, fresh/straggler split, stale landings, APT targets,
 resource accounting) equals the reference's.  Configurations outside the
 slice raise ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -21,9 +24,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from repro_torch.core.aggregation import (flat_dim, flatten_update,
-                                          make_flat_spec, unflatten_update)
+from repro_torch.core.aggregation import (fedavg_apply, flat_dim,
+                                          flatten_update, make_flat_spec,
+                                          stale_synchronous_aggregate_flat,
+                                          unflatten_update, yogi_apply_flat,
+                                          yogi_init_flat)
 from repro_torch.core.apt import AdaptiveParticipantTarget
 from repro_torch.core.availability import ForecasterBank
 from repro_torch.learners import MODEL_TABLE, DataMeta, build_model
@@ -47,7 +54,7 @@ class SimConfig:
     rounds: int = 200
     selector: str = "random"          # random | priority in this slice
     selector_params: tuple = ()
-    server_opt: str = "fedavg"
+    server_opt: str = "fedavg"        # fedavg | yogi
     aggregator: str = "saa"
     trim_k: int = 1
     krum_f: int = 0
@@ -77,7 +84,7 @@ class SimConfig:
     eval_every: int = 10
     selection_window: float = 5.0
     seed: int = 0
-    use_agg_kernel: bool = False      # SAA server step through the CUDA kernel
+    use_agg_kernel: bool = False      # SAA server step through the CUDA kernels
     fast_path: bool = True
     fused_rounds: bool = True
     target_accuracy: Optional[float] = None   # accuracy-target early stop
@@ -112,8 +119,6 @@ class SimConfig:
 # ports it)
 _UNPORTED = (
     (lambda c: not c.fast_path, "the legacy pytree engine (fast_path=False)", 15),
-    (lambda c: not c.fused_rounds, "the per-stage flat path (fused_rounds=False)", 7),
-    (lambda c: c.server_opt != "fedavg", "server_opt other than fedavg", 3),
     (lambda c: c.aggregator != "saa", "robust aggregators", 11),
     (lambda c: c.attack != "none", "coordinated attacks", 10),
     (lambda c: c.guard, "guarded aggregation / quorum", 10),
@@ -207,7 +212,8 @@ class _InFlight:
     origin_round: int
     arrival: float
     duration: float
-    delta: object                     # device stale-cache slot id
+    delta: object                     # fused: device stale-cache slot id;
+                                      # flat: the cloned (D,) device row
     stat_util: float
 
 
@@ -283,6 +289,16 @@ class Simulator:
             ln.fp32_matmuls()
         self.flat_params = torch.as_tensor(substrate.flat_params0,
                                            device=self.device).clone()
+        self.flat_opt_state = (yogi_init_flat(len(substrate.flat_params0),
+                                              device=self.device)
+                               if cfg.server_opt == "yogi" else None)
+        data = self.data      # device copies: batches are gathered there
+        self.x_train = torch.as_tensor(data.x_train, device=self.device)
+        self.y_train = torch.as_tensor(data.y_train, dtype=torch.int64,
+                                       device=self.device)
+        self.x_test = torch.as_tensor(data.x_test, device=self.device)
+        self.y_test = torch.as_tensor(data.y_test, dtype=torch.int64,
+                                      device=self.device)
         self.acct = Accounting()
         self.stale_cache: list[_InFlight] = []
         self.busy_until = np.zeros(cfg.n_learners)  # device busy training/uploading
@@ -428,12 +444,88 @@ class Simulator:
         return (float(self.cfg.local_steps * self.cfg.local_batch * l2s[row])
                 if l2s is not None else 0.0)
 
+    def train_cohort(self, flat_row: torch.Tensor, bidx: torch.Tensor,
+                     out_dim=None):
+        """Local training of a cohort from ``flat_row`` (read up to D) in
+        one batched call: bidx (m, steps*batch) device int64 sample
+        indices.  Both substrates train through here, on the same rows, so
+        their deltas are bit-identical.  Returns (deltas (m, out_dim or D),
+        losses (m,), l2 stats (m,))."""
+        cfg = self.cfg
+        m = bidx.shape[0]
+        bx = self.x_train[bidx].view(m, cfg.local_steps, cfg.local_batch, -1)
+        by = self.y_train[bidx].view(m, cfg.local_steps, cfg.local_batch)
+        return ln.local_train_cohort(flat_row, bx, by, spec=self._flat_spec,
+                                     lr=cfg.local_lr, prox_mu=cfg.prox_mu,
+                                     loss=self._model_fns.loss,
+                                     out_dim=out_dim)
+
+    @staticmethod
+    def survivors(plan: RoundPlan):
+        """(plan rows that do not drop out, plan row -> trained row or -1).
+        Only these rows are trained: a dropout's delta is never used."""
+        surv = np.nonzero(~np.isfinite(plan.drop_at))[0]
+        pos = np.full(plan.k, -1, np.int64)
+        pos[surv] = np.arange(len(surv))
+        return surv, pos
+
+    def _train(self, plan: RoundPlan):
+        """Device stage of the flat path: the surviving learners' local
+        training.  Returns (deltas (m, D) or None, plan row -> delta row,
+        l2 stats (k,) host fp32 by plan row).  The reference also trains
+        the rows that drop out (bucket-padded); their deltas and stats are
+        discarded, so the port skips them on both substrates (their stats
+        stay 0 and are never read)."""
+        surv, pos = self.survivors(plan)
+        l2s = np.zeros(plan.k, np.float32)
+        if not len(surv):
+            return None, pos, l2s
+        bidx = torch.as_tensor(plan.bidx[surv], device=self.device)
+        deltas, _, l2 = self.train_cohort(self.flat_params, bidx)
+        l2s[surv] = l2.cpu().numpy()
+        return deltas, pos, l2s
+
+    def _collect_updates(self, r: int, plan: RoundPlan, deltas, pos, l2s):
+        """Schedule the round, apply selector feedback (stat utility from
+        ``l2s``, by plan row), then take the scheduled rows out of the
+        round's deltas.  New stragglers enter ``stale_cache`` with a cloned
+        device row.  Returns (t_end, fresh_updates, stale_updates,
+        stale_taus)."""
+        sched = self._schedule_round(r, plan)
+        self._apply_feedback(r, sched, l2s)
+        fresh_updates = [deltas[pos[i]] for i in sched.fresh_rows]
+        for (i, lid, arr, dur) in sched.new_stale:
+            self.stale_cache.append(_InFlight(lid, r, arr, dur,
+                                              deltas[pos[i]].clone(),
+                                              self._stat_util(i, l2s)))
+        stale_updates = [f.delta for f in sched.landing]
+        return sched.t_end, fresh_updates, stale_updates, sched.landing_taus
+
+    def _aggregate(self, fresh_updates, stale_updates, stale_taus):
+        """The aggregated delta (D,) of the round's rows, fresh first."""
+        cfg = self.cfg
+        nf, ns = len(fresh_updates), len(stale_updates)
+        stacked = torch.stack(fresh_updates + stale_updates)
+        fresh = torch.arange(nf + ns, device=self.device) < nf
+        tau = torch.as_tensor(np.asarray([0] * nf + list(stale_taus),
+                                         np.int32), device=self.device)
+        agg, _ = stale_synchronous_aggregate_flat(
+            stacked, fresh, tau, rule=cfg.scaling_rule, beta=cfg.beta,
+            use_kernel=cfg.use_agg_kernel)
+        return agg
+
+    def _apply_update(self, agg) -> None:
+        """Server optimizer step on the aggregated delta."""
+        if self.cfg.server_opt == "yogi":
+            self.flat_params, self.flat_opt_state = yogi_apply_flat(
+                self.flat_params, agg, self.flat_opt_state)
+        else:
+            self.flat_params = fedavg_apply(self.flat_params, agg,
+                                            self.cfg.server_lr)
+
     def _evaluate(self):
         params = unflatten_update(self.flat_params, self._flat_spec)
-        return self._model_fns.evaluate(
-            params, torch.as_tensor(self.data.x_test, device=self.device),
-            torch.as_tensor(self.data.y_test, dtype=torch.int64,
-                            device=self.device))
+        return self._model_fns.evaluate(params, self.x_test, self.y_test)
 
     def _advance_round_state(self, r: int, t_start: float, t_end: float,
                              n_selected: int, n_fresh: int, n_stale: int):
@@ -488,5 +580,38 @@ class Simulator:
         return self.acct
 
     def run(self, progress: bool = False) -> Accounting:
-        from repro_torch.sim.pipeline import RoundPipeline
-        return RoundPipeline(self, progress=progress).run()
+        if self.cfg.fused_rounds:
+            from repro_torch.sim.pipeline import RoundPipeline
+            return RoundPipeline(self, progress=progress).run()
+        self._t_now = 0.0
+        return self._run_loop(progress)
+
+    def _run_loop(self, progress: bool) -> Accounting:
+        """The per-stage flat round loop."""
+        for r in range(self.cfg.rounds):
+            if self._flat_round(r, progress) is not None and \
+                    self._target_reached():
+                self.acct.stopped_early = True
+                break
+        return self._finalize()
+
+    def _flat_round(self, r: int, progress: bool):
+        """One round of the flat path; returns its RoundRecord, or None
+        when the round was skipped.  The profiler spans carry the fused
+        pipeline's names: host stages, device work, bookkeeping + eval."""
+        with record_function("round.schedule"):
+            plan = self._begin_round(r)
+        if plan is None:
+            return None
+        with record_function("round.device"):
+            deltas, pos, l2s = self._train(plan)
+        with record_function("round.schedule"):
+            t_end, fresh, stale, taus = self._collect_updates(r, plan, deltas,
+                                                              pos, l2s)
+        if fresh or stale:
+            with record_function("round.device"):
+                self._apply_update(self._aggregate(fresh, stale, taus))
+        with record_function("round.eval"):
+            return self._record_round(r, plan.t_now, t_end, len(plan.chosen),
+                                      len(fresh), len(stale),
+                                      progress=progress)

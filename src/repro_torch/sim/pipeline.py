@@ -15,15 +15,19 @@ step:
      landings are quarantined for one round, so this round's scatter slots
      never collide with its gather slots;
   4. SAA weights and the server step update the model in place: through
-     the CUDA kernel (``use_agg_kernel=True``), else through
-     ``core.aggregation``'s plain torch path.
+     the CUDA kernels (``use_agg_kernel=True``), else through
+     ``core.aggregation``'s plain torch path.  FedAvg applies the aggregate
+     inside the kernel (``sweep_fused_staleness_apply``); YoGi takes the
+     aggregate (``sweep_fused_staleness_aggregate``) and steps its own
+     state.
 
-The model row and the cache rows are kept ``d_pad`` wide under the kernel
-(D rounded up to its 2048-column block); the pad columns stay exact zeros
-because the deltas are zero-padded where they are made and every server
-operation is columnwise.  The reference pads participant counts to shape
-buckets to bound XLA recompiles; eager PyTorch runs the exact shapes
-(padding never changes a result in the reference either).
+The model row, the cache rows and the YoGi state are kept ``d_pad`` wide
+under the kernel (D rounded up to its 2048-column block); the pad columns
+stay exact zeros (zero in YoGi's m and v too) because the deltas are
+zero-padded where they are made and every server operation is columnwise.
+The reference pads participant counts to shape buckets to bound XLA
+recompiles; eager PyTorch runs the exact shapes (padding never changes a
+result in the reference either).
 """
 from __future__ import annotations
 
@@ -33,11 +37,11 @@ from torch.profiler import record_function
 
 from repro_torch.core.aggregation import (aggregate_updates, flat_dim,
                                           unflatten_update,
-                                          weights_and_aggregate_by_id)
+                                          weights_and_aggregate_by_id,
+                                          yogi_apply_flat, yogi_init_flat)
 from repro_torch.core.stale_cache import DeviceStaleCache
 from repro_torch.core.staleness import EPS, RULE_ID
 from repro_torch.kernels.staleness_agg import ops as saa_ops
-from repro_torch.sim import learner as ln
 from repro_torch.sim.engine import _InFlight
 
 
@@ -64,13 +68,12 @@ class RoundPipeline:
         self.cache = DeviceStaleCache(self.d_pad,
                                       capacity=cfg.stale_cache_capacity,
                                       device=dev)
-        data = sim.data
-        self.x_tr = torch.as_tensor(data.x_train, device=dev)
-        self.y_tr = torch.as_tensor(data.y_train, dtype=torch.int64, device=dev)
-        self.x_te = torch.as_tensor(data.x_test, device=dev)
-        self.y_te = torch.as_tensor(data.y_test, dtype=torch.int64, device=dev)
+        self.yogi = cfg.server_opt == "yogi"
+        self.opt_state = (yogi_init_flat(self.d, device=dev, width=self.d_pad)
+                          if self.yogi else None)
         self._scal = torch.tensor([[cfg.beta, cfg.server_lr]],
                                   dtype=torch.float32, device=dev)
+        self._beta = self._scal[:, 0].contiguous()
         self._pending_free = []   # freed slots quarantined for one round
 
     def run(self):
@@ -113,16 +116,15 @@ class RoundPipeline:
         if sim.eval_due(r):
             with record_function("round.eval"):
                 acc, loss = sim._model_fns.evaluate(
-                    unflatten_update(self.params[0], self.spec), self.x_te,
-                    self.y_te)
+                    unflatten_update(self.params[0], self.spec), sim.x_test,
+                    sim.y_test)
                 sim._fill_round_eval(rec, acc, loss, progress=self.progress)
         return rec
 
     def _device_round(self, plan, sched) -> None:
-        cfg = self.sim.cfg
-        surv = np.nonzero(~np.isfinite(plan.drop_at))[0]
-        pos = np.full(plan.k, -1, np.int64)       # plan row -> trained row
-        pos[surv] = np.arange(len(surv))
+        sim = self.sim
+        cfg = sim.cfg
+        surv, pos = sim.survivors(plan)
         nf, ns = len(sched.fresh_rows), len(sched.landing)
         # one host->device copy per round: every index the round needs,
         # and the aggregation rows' staleness (fresh rows first)
@@ -138,16 +140,8 @@ class RoundPipeline:
             ints, sizes)
 
         if len(surv):
-            tb = cfg.local_steps * cfg.local_batch
-            bidx = bidx.view(len(surv), tb)
-            bx = self.x_tr[bidx].view(len(surv), cfg.local_steps,
-                                      cfg.local_batch, -1)
-            by = self.y_tr[bidx].view(len(surv), cfg.local_steps,
-                                      cfg.local_batch)
-            deltas, _, _ = ln.local_train_cohort(
-                self.params[0], bx, by, spec=self.spec, lr=cfg.local_lr,
-                prox_mu=cfg.prox_mu, loss=self.sim._model_fns.loss,
-                out_dim=self.d_pad)
+            deltas, _, _ = sim.train_cohort(
+                self.params[0], bidx.view(len(surv), -1), out_dim=self.d_pad)
             if sched.new_stale:
                 self.cache.rows[slots] = deltas[stale_rows]
         if nf + ns == 0:
@@ -157,22 +151,36 @@ class RoundPipeline:
         fresh = torch.arange(nf + ns, device=self.device) < nf
         tau = taus.to(torch.int32)
         valid = torch.ones_like(fresh)
-        if cfg.use_agg_kernel:
+        if cfg.use_agg_kernel and not self.yogi:
             saa_ops.sweep_fused_staleness_apply(
                 self.params, u[None], fresh[None], tau[None], valid[None],
                 self._scal, rule=cfg.scaling_rule)
             return
-        if ns == 0:
-            # no stale rows: Eq. 2 degenerates to the fresh average
+        if cfg.use_agg_kernel:
+            agg, _ = saa_ops.sweep_fused_staleness_aggregate(
+                u[None], fresh[None], tau[None], self._beta, valid[None],
+                rule=cfg.scaling_rule)
+            agg = agg[0]
+        elif ns == 0:
+            # no stale rows: Eq. 2 degenerates to the fresh average (the
+            # same weight bits as the general path: fresh rows weigh 1)
             w = fresh.to(torch.float32)
             agg = aggregate_updates(u, w / torch.clamp(w.sum(), min=EPS))
         else:
             agg, _ = weights_and_aggregate_by_id(
                 u, fresh, tau, valid, cfg.beta, RULE_ID[cfg.scaling_rule])
-        self.params[0] += cfg.server_lr * agg
+        if self.yogi:
+            new, self.opt_state = yogi_apply_flat(self.params[0], agg,
+                                                  self.opt_state)
+            self.params[0] = new
+        else:
+            self.params[0] += cfg.server_lr * agg
 
     def finalize(self):
         """Write the device model back to the Simulator and finalize it."""
         sim = self.sim
         sim.flat_params = self.params[0, :self.d].clone()
+        if self.yogi:
+            sim.flat_opt_state = {k: v[:self.d].clone() if v.dim() else v
+                                  for k, v in self.opt_state.items()}
         return sim._finalize()

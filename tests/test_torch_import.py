@@ -61,9 +61,6 @@ def test_simulator_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
 
 @pytest.mark.parametrize("override,item", [
     (dict(fast_path=False), 15),
-    (dict(fused_rounds=False), 7),
-    (dict(server_opt="yogi"), 3),
-    (dict(aggregator="yogi"), 3),
     (dict(aggregator="trimmed_mean"), 11),
     (dict(attack="alie"), 10),
     (dict(guard=True), 10),
@@ -74,11 +71,27 @@ def test_simulator_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
     (dict(model="transformer"), 13),
     (dict(selector="oort"), 6),
     (dict(selector="safa"), 6),
+    (dict(fused_rounds=False, guard=True), 10),
+    (dict(fused_rounds=False, attack="alie"), 10),
+    (dict(fused_rounds=False, aggregator="krum"), 11),
+    (dict(fused_rounds=False, telemetry=1), 12),
 ])
 def test_out_of_slice_configs_name_their_roadmap_item(override, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue 1 item {item}\)"):
         SimConfig(**override)
+
+
+@pytest.mark.parametrize("override,server_opt", [
+    (dict(fused_rounds=False), "fedavg"),
+    (dict(server_opt="yogi"), "yogi"),
+    (dict(aggregator="yogi"), "yogi"),
+])
+def test_slice_configs_accepted(override, server_opt):
+    """The per-stage flat path and the YoGi server step (also under its old
+    name ``aggregator="yogi"``) are in the slice."""
+    cfg = SimConfig(**override)
+    assert cfg.server_opt == server_opt and cfg.aggregator == "saa"
 
 
 def test_slice_configs_are_accepted():
