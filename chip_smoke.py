@@ -10,24 +10,35 @@ From the repository root, with nothing built beforehand.  It
      on the card (the round pipeline's shapes, a large shape, every scaling
      rule, padding, no-stale, no-fresh and all-invalid cells; the params
      update in place), and holds the apply kernels bit for bit to the
-     aggregate kernels followed by torch's ``params + lr * agg``; after
-     step 4 it does the same at every participant count n the paths ran
-     a kernel at;
-  4. drives the port's paths at the quickstart's full scale, each with the
-     launch counters zeroed just before it and read just after: the fused
-     pipeline's Random and RELAY campaigns (``sweep_fused_staleness_apply``)
-     and RELAY+YoGi (``sweep_fused_staleness_aggregate``), the per-stage
-     flat path's Random, RELAY and RELAY+YoGi (``fused_staleness_aggregate``),
-     and the host entry points' A/B path over the flat RELAY campaign's
-     rounds (``fused_staleness_apply``, ``deviation_partials``,
-     ``weighted_aggregate``).  Every kernel must launch exactly once per
-     round that aggregated; then each campaign is timed warm (rounds/s) and
-     profiled (device busy share, host spans, top GPU kernels);
+     aggregate kernels followed by torch's ``params + lr * agg``; holds the
+     trimmed-mean kernel against its plain version (mixed trim depths and
+     valid counts, +inf exclusion rows, D off the 2048 block, ties, even
+     and odd medians, degenerate cells); after step 4 it does the same at every
+     participant count n the paths ran a kernel at;
+  4. drives the port's paths at full width, each with the launch counters
+     zeroed just before it and read just after: at the quickstart's scale
+     the fused pipeline's Random and RELAY campaigns
+     (``sweep_fused_staleness_apply``) and RELAY+YoGi
+     (``sweep_fused_staleness_aggregate``), the per-stage flat path's
+     Random, RELAY and RELAY+YoGi (``fused_staleness_aggregate``), and the
+     host entry points' A/B path over the flat RELAY campaign's rounds
+     (``fused_staleness_apply``, ``deviation_partials``,
+     ``weighted_aggregate``); then the robustness race of
+     ``examples/chaos_round.py`` (100 learners, 40 rounds, a colluding
+     sign-flip attack) under five aggregators, each fused and flat:
+     attacked saa, multi_krum and norm_median_clip launch no kernel, and
+     coord_median and trimmed_mean launch ``sweep_trimmed_aggregate``.
+     Every kernel must launch exactly once per round that aggregated on
+     its path, and no other kernel may launch; then each campaign is timed
+     warm (rounds/s) and profiled (device busy share, host spans, top GPU
+     kernels);
   5. checks the result: finite parameters of the model's width; each flat
-     campaign equal to its fused twin bit for bit (records and params);
-     host records equal to a CPU run of every campaign; small RELAY,
-     RELAY+YoGi and RELAY flat runs on the GPU close to the same runs on
-     the CPU;
+     campaign equal to its fused twin bit for bit (records, params and
+     robust counters); host records, attacker sets and robust counters
+     equal to a CPU run of every campaign; coord_median ahead of attacked
+     saa in final accuracy (the example's own pass rule); small RELAY,
+     RELAY+YoGi, RELAY flat and attacked coord_median runs on the GPU
+     close to the same runs on the CPU;
   6. times each kernel, its plain version and (where one exists) the one
      PyTorch call that computes the same function, and prints their bounds.
 It exits non-zero, printing no result, on any failure or without a GPU.
@@ -56,10 +67,15 @@ P_RTOL, P_ATOL = 1e-4, 1e-5
 MAIN_D = 14336        # mlp on speech: D = 12835 padded to the 2048-column block
 LARGE = (1, 64, 1 << 20)
 
+# H100 SXM fp32 lane-instruction rate: 132 SMs x 128 lanes x 1.98 GHz, half
+# the FMA-counted 67 TFLOP/s; the trimmed mean's min/max work is counted
+# against it
+PEAK_FP32_LANE_OPS = 33.5e12
 SOURCE = "src/repro_torch/kernels/staleness_agg/csrc/staleness_agg.cu"
+TRIM_SOURCE = "src/repro_torch/kernels/trimmed_agg/csrc/trimmed_agg.cu"
 PALLAS = "src/repro/kernels/staleness_agg/staleness_agg.py"
-# kernel -> the line of its TPU def
-REPLACES = {
+# SAA kernel -> the line of its TPU def
+SAA_REPLACES = {
     "sweep_fused_staleness_apply": f"{PALLAS}:267",
     "sweep_fused_staleness_aggregate": f"{PALLAS}:318",
     "fused_staleness_aggregate": f"{PALLAS}:364",
@@ -67,7 +83,27 @@ REPLACES = {
     "deviation_partials": f"{PALLAS}:460",
     "weighted_aggregate": f"{PALLAS}:490",
 }
-APPLY, AGG, CELL_AGG, CELL_APPLY, PARTIALS, WAGG = REPLACES
+APPLY, AGG, CELL_AGG, CELL_APPLY, PARTIALS, WAGG = SAA_REPLACES
+TRIM = "sweep_trimmed_aggregate"
+REPLACES = {**SAA_REPLACES,
+            TRIM: "src/repro/kernels/trimmed_agg/trimmed_agg.py:61"}
+TRIM_D = (2048, 2 * 2048 + 37, 12835)   # the TPU block, off it, the model
+TRIM_CASES = ("mixed", "ties", "median", "degenerate", "equal")
+# examples/chaos_round.py's robustness race at its full size: the
+# quickstart's model, a colluding sign-flip attack on 10% of the learners
+RACE = dict(n_learners=100, rounds=40, eval_every=10, n_target=10,
+            selector="priority", saa=True, scaling_rule="relay",
+            mapping="label_uniform", seed=0, setting="DL", deadline=1e6,
+            attack="collude_signflip", attack_frac=0.1, attack_scale=50.0,
+            use_agg_kernel=True)
+DEFENSES = {               # campaign -> (aggregator settings, its kernel)
+    "saa (attacked)": ({}, None),
+    "coord_median": (dict(aggregator="coord_median"), TRIM),
+    "trimmed_mean": (dict(aggregator="trimmed_mean", trim_k=4), TRIM),
+    "multi_krum": (dict(aggregator="multi_krum", krum_f=4), None),
+    "norm_median_clip": (dict(aggregator="norm_median_clip",
+                              guard_reject_mult=5.0), None),
+}
 
 
 def fail(msg):
@@ -119,6 +155,8 @@ class Checks:
         self.rel = Counter()
 
     def close(self, kernel, got, want, what, weights=False):
+        """``weights``: hold to the weights' (and the trimmed mean's)
+        tolerance, else to the aggregates'."""
         torch = self.torch
         rtol, atol = (W_RTOL, W_ATOL) if weights else (P_RTOL, P_ATOL)
         if not torch.isfinite(got).all():
@@ -206,6 +244,56 @@ def check_family(torch, ops, ref, checks, s, n, d, rule, case, gen,
     checks.close(PARTIALS, den, den_r, what)
     checks.close(WAGG, o6, o6_r, what)
     checks.count(PARTIALS, WAGG)
+
+
+def trimmed_inputs(torch, n, d, case, gen):
+    """Operands of the trimmed-mean kernel for one check, three cells:
+    y (3, n, D) with +inf rows past each cell's valid count, k_eff and c
+    (3,) int32.  ``case`` picks the values and the trim depths."""
+    dev = "cuda"
+    y = torch.randn((3, n, d), generator=gen, device=dev)
+    if case == "ties":
+        y = torch.round(y * 2) / 2          # a few distinct values: many ties
+    elif case == "equal":
+        y = y[:, :1].expand(3, n, d).contiguous()   # one value per column
+    c = [0, 1, n] if case == "degenerate" else [n, max(n - 1, 1), max(n - 3, 1)]
+    if case in ("median", "degenerate"):
+        k = [max((ci - 1) // 2, 0) for ci in c]
+    else:
+        k = [0, min(1, max((c[1] - 1) // 2, 0)), max((c[2] - 1) // 2, 0)]
+    for i, ci in enumerate(c):
+        y[i, ci:] = float("inf")
+    as_i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    return y, as_i32(k), as_i32(c)
+
+
+def check_trimmed(torch, ops, ref, checks, n, d, case, gen):
+    """The trimmed-mean kernel on one set of operands against its plain
+    version (the kernel sums the band in row order, the plain version in
+    sorted order: the weights' tolerance, as the JAX tests hold it)."""
+    y, k, c = trimmed_inputs(torch, n, d, case, gen)
+    got = ops.sweep_trimmed_aggregate(y, k, c)
+    want = ref.sweep_trimmed_aggregate(y, k, c)
+    torch.cuda.synchronize()
+    what = f"S=3 n={n} D={d} case={case} k={k.tolist()} c={c.tolist()}"
+    checks.close(TRIM, got, want, what, weights=True)
+    if case == "degenerate" and (got[0].any() or not torch.equal(got[1], y[1, 0])):
+        fail(f"{TRIM}: c = 0 must give zeros and c = 1 its row, at {what}")
+    checks.count(TRIM)
+
+
+def trimmed_cost(s, n, d, band):
+    """(bytes, lane instructions) the trimmed mean needs: y read once, the
+    output written once, k_eff and c (8 bytes a cell); per column, a
+    bitonic sorting network over n rounded up to a power of two, p stages
+    of (n/2) p (p + 1) / 2 compare-exchanges at 2 instructions each (a min
+    and a max), then an add for each of the ``band`` values in the band and
+    a divide.  A sort bounds the work from above (a selection needs less),
+    and at every shape timed the bytes decide all the same."""
+    p = max(n - 1, 0).bit_length()
+    exchanges = (1 << p) // 2 * p * (p + 1) // 2
+    return (s * n * d * 4 + s * d * 4 + s * 8,
+            s * d * (2 * exchanges + band + 1))
 
 
 def time_ms(torch, fn, iters, warmup=5) -> float:
@@ -316,6 +404,30 @@ def time_kernel(torch, ops, ref, kernel, s, n, d, iters, gen) -> dict:
     return res
 
 
+def time_trimmed(torch, ops, ref, n, d, iters, gen) -> dict:
+    """As ``time_kernel``, for the trimmed-mean kernel on one cell of n
+    valid rows at the median's trim depth (the work does not depend on
+    it).  No single PyTorch call computes the band mean (a sort and a
+    masked sum are two), so there is no library time."""
+    y = torch.randn((1, n, d), generator=gen, device="cuda")
+    k = torch.tensor([(n - 1) // 2], dtype=torch.int32, device="cuda")
+    c = torch.tensor([n], dtype=torch.int32, device="cuda")
+    kern = lambda: ops.sweep_trimmed_aggregate(y, k, c)
+    plain = lambda: ref.sweep_trimmed_aggregate(y, k, c)
+    pr1, k1 = time_ms(torch, plain, iters), time_ms(torch, kern, iters)
+    k2, pr2 = time_ms(torch, kern, iters), time_ms(torch, plain, iters)
+    nbytes, lane_ops = trimmed_cost(1, n, d, n - 2 * ((n - 1) // 2))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = lane_ops / PEAK_FP32_LANE_OPS * 1e3
+    return {"shape": {"n": n, "D": d}, "ms": min(k1, k2), "ms_runs": [k1, k2],
+            "plain_ms": min(pr1, pr2), "plain_ms_runs": [pr1, pr2],
+            "device_ms": graph_ms(torch, kern),
+            "plain_device_ms": graph_ms(torch, plain), "bytes": nbytes,
+            "lane_ops": lane_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "library_device_ms": None}
+
+
 def profile_campaign(torch, run) -> dict:
     """Device busy share, host span times and the top GPU kernels of one
     warm campaign, from a ``torch.profiler`` trace.  Busy time is the sum
@@ -359,6 +471,19 @@ def aggregated(acct) -> int:
     return sum(1 for r in acct.records if r.n_fresh + r.n_stale > 0)
 
 
+def robust_counts(acct):
+    s = acct.summary()
+    return s["robust_rejected"], s["robust_trimmed"]
+
+
+def attacker_sets(sim):
+    """Every round's attacker ids of a Simulator's plan (empty unattacked)."""
+    plan = sim.fault_plan
+    if plan is None:
+        return []
+    return [plan.attackers(r).tolist() for r in range(sim.cfg.rounds)]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -369,12 +494,15 @@ def main():
     from repro_torch.kernels import LAUNCHES, _build
     from repro_torch.kernels.staleness_agg import ops as saa_ops
     from repro_torch.kernels.staleness_agg import ref as saa_ref
+    from repro_torch.kernels.trimmed_agg import ops as trim_ops
+    from repro_torch.kernels.trimmed_agg import ref as trim_ref
     from repro_torch.quickstart import CAMPAIGNS, COMMON, table
     from repro_torch.sim import SimConfig, Simulator
     from repro_torch.sim.learner import fp32_matmuls
 
     fp32_matmuls()        # the plain versions' matmuls in full fp32 too
-    report = {"card": card_line(), "kind": torch.cuda.get_device_name(0)}
+    report = {"card": card_line(), "kind": torch.cuda.get_device_name(0),
+              "torch": f"{torch.__version__} cuda {torch.version.cuda}"}
     print(f"card: {report['card']}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -402,6 +530,15 @@ def main():
                                  rule, case, gen, rule_free=rule == rules[0])
     grid = [(1, n, MAIN_D) for n in (1, 2, 10, 16)] + [(3, 10, MAIN_D), LARGE]
     check_grid(grid)
+
+    def check_trim_grid(ns, ds):
+        for n in ns:
+            for d in ds:
+                for case in TRIM_CASES:
+                    check_trimmed(torch, trim_ops, trim_ref, checks, n, d,
+                                  case, gen)
+    trim_grid_n = (2, 6, 9, 16, 64)
+    check_trim_grid(trim_grid_n, TRIM_D)
     for k in REPLACES:
         print(f"{k} == plain version in {checks.n[k]} checks "
               f"(max abs err {checks.err[k]:.3g}, relative {checks.rel[k]:.3g})")
@@ -410,7 +547,7 @@ def main():
 
     # --- 3. the paths, launch counters zeroed just before each ----------
     yogi = dict(CAMPAIGNS["RELAY"], server_opt="yogi")
-    runs = {                       # campaign -> (config, the kernel it runs)
+    quick = {                      # campaign -> (config, the kernel it runs)
         "Random": (CAMPAIGNS["Random"], APPLY),
         "RELAY": (CAMPAIGNS["RELAY"], APPLY),
         "RELAY+YoGi": (yogi, AGG),
@@ -418,10 +555,15 @@ def main():
         "RELAY flat": (dict(CAMPAIGNS["RELAY"], fused_rounds=False), CELL_AGG),
         "RELAY+YoGi flat": (dict(yogi, fused_rounds=False), CELL_AGG),
     }
+    runs = {name: (dict(COMMON, **kw), kernel)
+            for name, (kw, kernel) in quick.items()}
+    for name, (kw, kernel) in DEFENSES.items():   # None: launches no kernel
+        runs[name] = (dict(RACE, **kw), kernel)
+        runs[f"{name} flat"] = (dict(RACE, **kw, fused_rounds=False), kernel)
     gpu, sims, launches = {}, {}, Counter()
     report["paths"] = {}
     for name, (kw, kernel) in runs.items():
-        sims[name] = Simulator(SimConfig(**COMMON, **kw), device="cuda")
+        sims[name] = Simulator(SimConfig(**kw), device="cuda")
         LAUNCHES.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -429,23 +571,34 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got, n_agg = dict(LAUNCHES), aggregated(gpu[name])
-        if n_agg == 0 or got != {kernel: n_agg}:
-            fail(f"{name}: launches {got}, expected {{{kernel!r}: {n_agg}}} "
-                 "(one per round that aggregated)")
+        want = {} if kernel is None else {kernel: n_agg}
+        if n_agg == 0 or got != want:
+            fail(f"{name}: launches {got}, expected {want} (one per round "
+                 "that aggregated, and no other kernel)")
         launches.update(got)
-        report["paths"][name] = {"launches": got, "aggregated_rounds": n_agg,
-                                 "first_run_s": wall}
+        summ = gpu[name].summary()
+        report["paths"][name] = {
+            "launches": got, "aggregated_rounds": n_agg, "first_run_s": wall,
+            "final_accuracy": summ["final_accuracy"],
+            "robust_rejected": summ["robust_rejected"],
+            "robust_trimmed": summ["robust_trimmed"]}
         print(f"{name}: {got} over {n_agg} aggregating rounds, {wall:.2f}s "
               "first run")
     print(table(gpu))
+    print(f"--- robustness race ({RACE['attack']}, attack_frac "
+          f"{RACE['attack_frac']}, scale {RACE['attack_scale']}) ---")
+    for name in DEFENSES:
+        summ = gpu[name].summary()
+        print(f"{name:20s} accuracy {summ['final_accuracy']:.3f}  rejected "
+              f"{summ['robust_rejected']}  trimmed {summ['robust_trimmed']}")
 
     # the host entry points' A/B path over the flat RELAY campaign's rounds
-    cfg = SimConfig(**COMMON, **runs["RELAY flat"][0])
+    cfg = SimConfig(**runs["RELAY flat"][0])
     rec_sim = Simulator(cfg, device="cuda")
     rounds, step = [], rec_sim._aggregate
 
-    def recording(fresh, stale, taus):
-        agg = step(fresh, stale, taus)
+    def recording(r, lids, fresh, stale, taus):
+        agg = step(r, lids, fresh, stale, taus)
         rounds.append((torch.stack(fresh + stale), len(fresh), list(taus),
                        rec_sim.flat_params, agg))
         return agg
@@ -482,22 +635,27 @@ def main():
     # each kernel against its plain version at every n the paths ran it at
     ns = {}                          # kernel -> the n it ran at, counted
     for name, (_, kernel) in runs.items():
-        ns.setdefault(kernel, Counter()).update(
-            r.n_fresh + r.n_stale for r in gpu[name].records
-            if r.n_fresh + r.n_stale > 0)
+        if kernel is not None:
+            ns.setdefault(kernel, Counter()).update(
+                r.n_fresh + r.n_stale for r in gpu[name].records
+                if r.n_fresh + r.n_stale > 0)
     for kernel in (CELL_APPLY, PARTIALS, WAGG):
         ns[kernel] = Counter(u.shape[0] for u, *_ in rounds)
-    path_ns = sorted(set().union(*ns.values()) - {n for _, n, _ in grid})
+    path_ns = sorted(set().union(*(ns[k] for k in SAA_REPLACES))
+                     - {n for _, n, _ in grid})
     before = sum(checks.n.values())
     check_grid([(1, n, MAIN_D) for n in path_ns])
-    print(f"kernels == plain versions at the paths' other n {path_ns}: "
+    trim_ns = sorted(ns[TRIM])                  # at the path's own D
+    check_trim_grid(trim_ns, (TRIM_D[-1],))
+    print(f"kernels == plain versions at the paths' other n (SAA {path_ns}, "
+          f"trimmed mean {trim_ns} at D={TRIM_D[-1]}): "
           f"{sum(checks.n.values()) - before} more checks; max abs err "
           + ", ".join(f"{k} {checks.err[k]:.3g}" for k in REPLACES))
 
     # per-campaign rounds/s: a second, warm run of each, then a profile
     report["campaigns"] = {}
     for name, (kw, _) in runs.items():
-        sim = Simulator(SimConfig(**COMMON, **kw), device="cuda")
+        sim = Simulator(SimConfig(**kw), device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         acct = sim.run()
@@ -512,7 +670,7 @@ def main():
             "waste_fraction": summ["waste_fraction"]}
         print(f"{name}: {len(acct.records)} rounds in {secs:.3f}s = "
               f"{len(acct.records) / secs:.1f} rounds/s")
-        prof = profile_campaign(torch, Simulator(SimConfig(**COMMON, **kw),
+        prof = profile_campaign(torch, Simulator(SimConfig(**kw),
                                                  device="cuda").run)
         report["campaigns"][name]["profile"] = prof
         idle = prof["device_idle_share"]
@@ -536,25 +694,44 @@ def main():
         p = sims[name].flat_params
         if p.shape != (d_model,) or not torch.isfinite(p).all():
             fail(f"{name}: parameters not finite or of the wrong width")
-    for fused in ("Random", "RELAY", "RELAY+YoGi"):
+    twins = [name for name in runs if f"{name} flat" in runs]
+    for fused in twins:
         flat = f"{fused} flat"
         if [record_bits(r) for r in gpu[fused].records] != \
                 [record_bits(r) for r in gpu[flat].records]:
             fail(f"{flat}: records differ from the fused pipeline's")
         if not torch.equal(sims[fused].flat_params, sims[flat].flat_params):
             fail(f"{flat}: params differ from the fused pipeline's")
-    print("flat == fused on the GPU, bitwise: records and params of Random, "
-          "RELAY and RELAY+YoGi")
+        if robust_counts(gpu[fused]) != robust_counts(gpu[flat]):
+            fail(f"{flat}: robust counters differ from the fused pipeline's")
+    print(f"flat == fused on the GPU, bitwise: records, params and robust "
+          f"counters of {', '.join(twins)}")
+    if not (gpu["coord_median"].summary()["robust_trimmed"] > 0
+            and gpu["coord_median"].summary()["final_accuracy"]
+            > gpu["saa (attacked)"].summary()["final_accuracy"]):
+        fail("coord_median did not beat attacked saa under the attack")
+    print(f"coord_median beat attacked saa: final accuracy "
+          f"{gpu['coord_median'].summary()['final_accuracy']:.3f} vs "
+          f"{gpu['saa (attacked)'].summary()['final_accuracy']:.3f}")
     for name, (kw, _) in runs.items():
-        cpu = Simulator(SimConfig(**COMMON, **kw), device="cpu").run()
+        cpu_sim = Simulator(SimConfig(**kw), device="cpu")
+        cpu = cpu_sim.run()
         if [host(r) for r in gpu[name].records] != [host(r) for r in cpu.records]:
             fail(f"{name}: GPU host records differ from the CPU run")
+        if robust_counts(gpu[name]) != robust_counts(cpu):
+            fail(f"{name}: robust counters {robust_counts(gpu[name])} differ "
+                 f"from the CPU run's {robust_counts(cpu)}")
+        if attacker_sets(sims[name]) != attacker_sets(cpu_sim):
+            fail(f"{name}: attacker sets differ from the CPU run's")
     small = dict(n_learners=30, rounds=8, eval_every=4, seed=2, n_target=4,
                  mapping="label_uniform", use_agg_kernel=True, selector="priority",
                  saa=True, apt=True, scaling_rule="relay")
     report["small_run_max_abs_diff"] = {}
     for label, kw in (("RELAY", {}), ("RELAY+YoGi", {"server_opt": "yogi"}),
-                      ("RELAY flat", {"fused_rounds": False})):
+                      ("RELAY flat", {"fused_rounds": False}),
+                      ("coord_median (attacked)", dict(
+                          aggregator="coord_median", attack="collude_signflip",
+                          attack_frac=0.25, attack_scale=10.0))):
         sims_s = {dv: Simulator(SimConfig(**small, **kw), device=dv)
                   for dv in ("cuda", "cpu")}
         accts = {dv: sim.run() for dv, sim in sims_s.items()}
@@ -574,12 +751,19 @@ def main():
 
     # --- 5. kernel times ------------------------------------------------
     times = {}
-    for kernel in REPLACES:
+    for kernel in SAA_REPLACES:
         n_main = ns[kernel].most_common(1)[0][0]
         times[kernel] = {
             "main": time_kernel(torch, saa_ops, saa_ref, kernel, 1, n_main,
                                 MAIN_D, 500, gen),
             "large": time_kernel(torch, saa_ops, saa_ref, kernel, *LARGE, 50, gen)}
+    times[TRIM] = {
+        "main": time_trimmed(torch, trim_ops, trim_ref,
+                             ns[TRIM].most_common(1)[0][0], TRIM_D[-1], 500,
+                             gen),
+        "large": time_trimmed(torch, trim_ops, trim_ref, 64, 1 << 20, 20, gen),
+        "n256": time_trimmed(torch, trim_ops, trim_ref, 256, 1 << 18, 10, gen)}
+    for kernel in REPLACES:
         for label, t in times[kernel].items():
             lib = ("" if t["library_ms"] is None else
                    f", library {t['library_ms']:.4f} ms (device "
@@ -609,7 +793,8 @@ def main():
     OUT.write_text(json.dumps(report, indent=1))
 
     kernels = [{
-        "name": kernel, "route": "cuda", "source": SOURCE,
+        "name": kernel, "route": "cuda",
+        "source": TRIM_SOURCE if kernel == TRIM else SOURCE,
         "replaces": REPLACES[kernel], "launches": launches[kernel],
         "max_abs_err": checks.err[kernel],
         "ms": times[kernel]["main"]["ms"],

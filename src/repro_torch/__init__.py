@@ -8,6 +8,10 @@ with the ``mlp`` learner, random or priority (RELAY IPS) selection, APT,
 SAA, and the fused round pipeline with its device stale cache.  The SAA
 server step runs through a hand-written CUDA kernel
 (``repro_torch.kernels.staleness_agg``) under ``use_agg_kernel=True``.
+The per-stage flat path, YoGi, the robust aggregators
+(``repro_torch.robust``; the coordinate-wise trim through the CUDA kernel
+``repro_torch.kernels.trimmed_agg``) and coordinated attacks
+(``repro_torch.faults``) run on both substrates.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
 there the kernels' plain PyTorch versions run instead.

@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.staleness import RULE_ID, staleness_weights_by_id
+from repro_torch.core.staleness import EPS, RULE_ID, staleness_weights_by_id
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +66,13 @@ def unflatten_update(flat: torch.Tensor, spec: FlatSpec) -> dict:
 def aggregate_updates(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """stacked: (n, D), weights: (n,) normalized -> (D,)."""
     return weights @ stacked
+
+
+def no_stale_aggregate(stacked, fresh, valid) -> torch.Tensor:
+    """Eq. 2 of a round with no stale rows: the mean of the fresh valid
+    rows (each weighs 1, the same weight bits as the general path)."""
+    w = (fresh & valid).to(torch.float32)
+    return aggregate_updates(stacked, w / torch.clamp(w.sum(), min=EPS))
 
 
 def weights_and_aggregate_by_id(stacked, fresh, tau, valid, beta, rule_id):
@@ -132,6 +139,52 @@ def stale_synchronous_aggregate_flat(stacked, fresh, tau, *,
     return weights_and_aggregate_by_id(stacked, fresh, tau,
                                        torch.ones_like(fresh), beta,
                                        RULE_ID[rule])
+
+
+def screen_rows(u, valid, *, clip=None, reject_mult=None):
+    """Screening of an update operand ``u`` (..., n, D); the reference's
+    formula, which ``norm_median_clip`` runs.  Three screens, in order:
+
+      1. non-finite reject: any NaN/Inf element invalidates the row;
+      2. norm-outlier reject (``reject_mult``): rows whose squared L2 norm
+         exceeds ``reject_mult**2`` times the median surviving squared
+         norm (median index ``(count - 1) // 2``);
+      3. norm clip (``clip``): surviving rows are rescaled to L2 norm
+         ``clip`` when they exceed it.
+
+    Rejected rows are zeroed, not only masked, so no NaN reaches a later
+    weighted sum.  valid: (..., n) bool.  Returns ``(u_screened, valid_out, n_nonfinite, n_norm_rejected, n_clipped)``,
+    the counts int32 summed over the row axis.
+    """
+    u = torch.as_tensor(u, dtype=torch.float32)
+    valid = torch.as_tensor(valid, dtype=torch.bool, device=u.device)
+    finite = torch.isfinite(u).all(dim=-1)
+    v1 = valid & finite
+    n_nf = (valid & ~finite).sum(dim=-1, dtype=torch.int32)
+    # rejected rows get +inf norms: they sort last and never reach the
+    # median index, which counts only surviving rows
+    n2 = torch.where(v1, (u * u).sum(dim=-1), torch.inf)
+    if reject_mult is not None:
+        srt = torch.sort(n2, dim=-1).values
+        idx = torch.clamp(v1.sum(dim=-1) - 1, min=0) // 2
+        med = torch.gather(srt, -1, idx[..., None])[..., 0]
+        mult2 = float(np.float32(reject_mult) ** 2)      # rounded as fp32
+        out = v1 & (n2 > mult2 * med[..., None])
+        v2 = v1 & ~out
+        n_out = out.sum(dim=-1, dtype=torch.int32)
+    else:
+        v2 = v1
+        n_out = torch.zeros_like(n_nf)
+    if clip is not None:
+        clip32 = float(np.float32(clip))
+        hit = v2 & (n2 > float(np.float32(clip) * np.float32(clip)))
+        scale = torch.where(hit, clip32 / torch.sqrt(n2), 1.0)
+        u = u * scale[..., None]
+        n_clip = hit.sum(dim=-1, dtype=torch.int32)
+    else:
+        n_clip = torch.zeros_like(n_nf)
+    u = torch.where(v2[..., None], u, 0.0)
+    return u, v2, n_nf, n_out, n_clip
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ _KERNELS = Path(__file__).resolve().parent
 # library name -> its source; one nvcc invocation per entry
 SOURCES = {
     "staleness_agg": _KERNELS / "staleness_agg" / "csrc" / "staleness_agg.cu",
+    "trimmed_agg": _KERNELS / "trimmed_agg" / "csrc" / "trimmed_agg.cu",
 }
 
 _loaded: dict = {}

@@ -10,7 +10,9 @@ Two substrates run a simulation: the fused device-resident pipeline
 (``repro_torch.sim.pipeline``, ``fused_rounds=True``) and the per-stage
 flat path below (``_run_loop``: train, collect, aggregate, apply, record),
 which the fused pipeline is held against bit for bit.  Both serve FedAvg
-and YoGi server steps, with or without the SAA kernels.  The host side —
+and YoGi server steps, with or without the SAA kernels, and the robust
+aggregators (``repro_torch.robust``) under coordinated attacks
+(``repro_torch.faults``).  The host side —
 the round stages below — is numpy with the reference's RNG draw order, so
 for the same config, seed and initial weights every host decision (cohort,
 arrival schedule, fresh/straggler split, stale landings, APT targets,
@@ -33,7 +35,11 @@ from repro_torch.core.aggregation import (fedavg_apply, flat_dim,
                                           yogi_init_flat)
 from repro_torch.core.apt import AdaptiveParticipantTarget
 from repro_torch.core.availability import ForecasterBank
+from repro_torch.faults import (ATTACK_KINDS, AttackSpec, FaultPlan,
+                                attack_key)
 from repro_torch.learners import MODEL_TABLE, DataMeta, build_model
+from repro_torch.robust import ROBUST_AGGREGATORS, robust_key
+from repro_torch.robust.aggregators import robust_host_aggregate
 from repro_torch.selection import (SELECTOR_TABLE, LearnerView, build_selector,
                                    normalize_selector_params)
 from repro_torch.sim import devices as dev
@@ -55,7 +61,7 @@ class SimConfig:
     selector: str = "random"          # random | priority in this slice
     selector_params: tuple = ()
     server_opt: str = "fedavg"        # fedavg | yogi
-    aggregator: str = "saa"
+    aggregator: str = "saa"           # robust aggregator (repro_torch.robust)
     trim_k: int = 1
     krum_f: int = 0
     multi_krum_m: Optional[int] = None
@@ -109,6 +115,12 @@ class SimConfig:
                 raise NotImplementedError(
                     f"{what} is not ported to repro_torch yet "
                     f"(ROADMAP.md queue 1 item {item})")
+        if self.aggregator not in ROBUST_AGGREGATORS:
+            raise ValueError(f"unknown aggregator {self.aggregator!r} "
+                             f"(choose from {ROBUST_AGGREGATORS})")
+        if self.attack not in ATTACK_KINDS:
+            raise ValueError(f"unknown attack {self.attack!r} "
+                             f"(choose from {ATTACK_KINDS})")
         self.selector_params = normalize_selector_params(
             self.selector, self.selector_params)
         self.model_params = MODEL_TABLE.normalize_params(self.model,
@@ -119,8 +131,6 @@ class SimConfig:
 # ports it)
 _UNPORTED = (
     (lambda c: not c.fast_path, "the legacy pytree engine (fast_path=False)", 15),
-    (lambda c: c.aggregator != "saa", "robust aggregators", 11),
-    (lambda c: c.attack != "none", "coordinated attacks", 10),
     (lambda c: c.guard, "guarded aggregation / quorum", 10),
     (lambda c: c.telemetry != 0, "telemetry", 12),
     (lambda c: c.rounds_per_dispatch != 1, "K-round chunks (rounds_per_dispatch > 1)", 8),
@@ -246,6 +256,13 @@ class RoundSchedule:
     slots: list = dataclasses.field(default_factory=list)  # set by the pipeline
 
 
+def agg_lids(plan: RoundPlan, sched: RoundSchedule) -> list:
+    """Learner ids behind a round's aggregation rows: fresh in arrival
+    order, then the landing stale rows in cache order."""
+    return ([int(plan.chosen[i]) for i in sched.fresh_rows]
+            + [f.learner_id for f in sched.landing])
+
+
 def resolve_device(device) -> torch.device:
     """The GPU unless the caller asks for another device; with no GPU and
     no explicit request this raises instead of running on the CPU."""
@@ -257,10 +274,32 @@ def resolve_device(device) -> torch.device:
     return torch.device("cuda")
 
 
+def _attach_attack(cfg: SimConfig, fault_plan):
+    """The run's fault plan: ``fault_plan`` (attacker sets only: a plan
+    with fault specs or a crash raises), with ``cfg``'s coordinated attack
+    attached when it has none (the reference's auto-attach)."""
+    if fault_plan is not None and (fault_plan.specs
+                                   or fault_plan.crash_after is not None):
+        raise NotImplementedError(
+            "fault plans with update corruption, post-drop, replay or a "
+            "crash are not ported to repro_torch yet "
+            "(ROADMAP.md queue 1 item 10)")
+    if attack_key(cfg) is None:
+        return fault_plan
+    plan = fault_plan
+    if plan is None:
+        plan = FaultPlan(cfg.n_learners, cfg.rounds, specs=(), seed=cfg.seed)
+    if plan.attack is None:
+        plan = plan.with_attack(AttackSpec(cfg.attack, cfg.attack_frac,
+                                           cfg.attack_scale, cfg.attack_z))
+    return plan
+
+
 class Simulator:
     def __init__(self, cfg: SimConfig, substrate: Optional[Substrate] = None,
-                 device=None):
+                 device=None, fault_plan=None):
         self.cfg = cfg
+        self.fault_plan = _attach_attack(cfg, fault_plan)
         self.device = resolve_device(device)
         if substrate is None:
             substrate = Substrate.build(cfg)
@@ -300,6 +339,12 @@ class Simulator:
         self.y_test = torch.as_tensor(data.y_test, dtype=torch.int64,
                                       device=self.device)
         self.acct = Accounting()
+        # the attack / robust descriptors (None: the plain path), and the
+        # robust counters [rejected, trimmed] summed on the device and read
+        # once by _finalize
+        self._attack, self._robust = attack_key(cfg), robust_key(cfg)
+        self.robust_counts = torch.zeros(2, dtype=torch.int32,
+                                         device=self.device)
         self.stale_cache: list[_InFlight] = []
         self.busy_until = np.zeros(cfg.n_learners)  # device busy training/uploading
         self.mu = cfg.deadline  # initial round-duration estimate
@@ -490,7 +535,8 @@ class Simulator:
         ``l2s``, by plan row), then take the scheduled rows out of the
         round's deltas.  New stragglers enter ``stale_cache`` with a cloned
         device row.  Returns (t_end, fresh_updates, stale_updates,
-        stale_taus)."""
+        stale_taus, agg_lids): ``agg_lids`` are the learner ids behind the
+        aggregation rows, fresh first, then landing stale."""
         sched = self._schedule_round(r, plan)
         self._apply_feedback(r, sched, l2s)
         fresh_updates = [deltas[pos[i]] for i in sched.fresh_rows]
@@ -499,13 +545,25 @@ class Simulator:
                                               deltas[pos[i]].clone(),
                                               self._stat_util(i, l2s)))
         stale_updates = [f.delta for f in sched.landing]
-        return sched.t_end, fresh_updates, stale_updates, sched.landing_taus
+        return (sched.t_end, fresh_updates, stale_updates, sched.landing_taus,
+                agg_lids(plan, sched))
 
-    def _aggregate(self, fresh_updates, stale_updates, stale_taus):
-        """The aggregated delta (D,) of the round's rows, fresh first."""
+    def _aggregate(self, r, lids, fresh_updates, stale_updates, stale_taus):
+        """The aggregated delta (D,) of round ``r``'s rows, fresh first.
+        Attacked or robust rounds take ``robust_host_aggregate``, with the
+        attacker flags of the rows' learner ids ``lids`` (a stale row is
+        flagged for the round it lands)."""
         cfg = self.cfg
         nf, ns = len(fresh_updates), len(stale_updates)
         stacked = torch.stack(fresh_updates + stale_updates)
+        if self._attack is not None or self._robust is not None:
+            agg, counts = robust_host_aggregate(
+                stacked, [True] * nf + [False] * ns, [0] * nf + list(stale_taus),
+                self.attack_flags(r, lids), attack=self._attack,
+                robust=self._robust, use_kernel=cfg.use_agg_kernel,
+                beta=cfg.beta, rule=cfg.scaling_rule)
+            self.robust_counts += counts
+            return agg
         fresh = torch.arange(nf + ns, device=self.device) < nf
         tau = torch.as_tensor(np.asarray([0] * nf + list(stale_taus),
                                          np.int32), device=self.device)
@@ -572,10 +630,19 @@ class Simulator:
         acc = self.acct.records[-1].accuracy
         return acc == acc and acc >= target
 
+    def attack_flags(self, r: int, lids):
+        """Which of ``lids`` are in round ``r``'s attacker set (None when
+        no attack is armed)."""
+        if self._attack is None:
+            return None
+        return self.fault_plan.attack_flags(r, lids)
+
     def _finalize(self) -> Accounting:
         # updates still in flight at the end of training are wasted work
         for f in self.stale_cache:
             self.acct.mark_wasted(f.duration)
+        if self._robust is not None:       # the run's one read of the counts
+            self.acct.note_robust(*self.robust_counts.tolist())
         self.params = unflatten_update(self.flat_params, self._flat_spec)
         return self.acct
 
@@ -606,11 +673,12 @@ class Simulator:
         with record_function("round.device"):
             deltas, pos, l2s = self._train(plan)
         with record_function("round.schedule"):
-            t_end, fresh, stale, taus = self._collect_updates(r, plan, deltas,
-                                                              pos, l2s)
+            t_end, fresh, stale, taus, lids = self._collect_updates(
+                r, plan, deltas, pos, l2s)
         if fresh or stale:
             with record_function("round.device"):
-                self._apply_update(self._aggregate(fresh, stale, taus))
+                self._apply_update(self._aggregate(r, lids, fresh, stale,
+                                                   taus))
         with record_function("round.eval"):
             return self._record_round(r, plan.t_now, t_end, len(plan.chosen),
                                       len(fresh), len(stale),

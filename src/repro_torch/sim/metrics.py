@@ -13,7 +13,7 @@ from typing import List, TypedDict
 
 class SimSummary(TypedDict):
     """Fixed-key summary of one simulation run (the reference's keys; the
-    guard and robust counters stay 0 in this slice)."""
+    guard counters stay 0 until guards are ported)."""
     rounds: int
     sim_time: float
     resource_used: float
@@ -26,8 +26,11 @@ class SimSummary(TypedDict):
     rejected_nonfinite: int
     rejected_norm: int
     quorum_skips: int
-    robust_rejected: int
-    robust_trimmed: int
+    robust_rejected: int         # robust aggregator: rows rejected (krum /
+                                 # multi_krum losers, norm_median_clip rejects)
+    robust_trimmed: int          # robust aggregator: rows trimmed per
+                                 # coordinate band (2 k_eff a round) or
+                                 # clipped (norm_median_clip)
 
 
 SUMMARY_KEYS = tuple(SimSummary.__annotations__)
@@ -54,6 +57,14 @@ class Accounting:
     resource_wasted: float = 0.0
     unique: set = dataclasses.field(default_factory=set)
     stopped_early: bool = False   # accuracy-target early stop fired
+    robust_rejected: int = 0      # robust aggregator: rows rejected
+    robust_trimmed: int = 0       # robust aggregator: rows trimmed/clipped
+
+    def note_robust(self, rejected: int, trimmed: int):
+        """Record robust-strategy outcomes (one aggregation's, or a run's
+        device-side totals)."""
+        self.robust_rejected += int(rejected)
+        self.robust_trimmed += int(trimmed)
 
     def charge(self, seconds: float, wasted: bool):
         self.resource_used += seconds
@@ -79,5 +90,6 @@ class Accounting:
             best_accuracy=max(accs) if accs else float("nan"),
             stopped_early=self.stopped_early,
             rejected_nonfinite=0, rejected_norm=0, quorum_skips=0,
-            robust_rejected=0, robust_trimmed=0,
+            robust_rejected=self.robust_rejected,
+            robust_trimmed=self.robust_trimmed,
         )

@@ -19,12 +19,19 @@ step:
      ``core.aggregation``'s plain torch path.  FedAvg applies the aggregate
      inside the kernel (``sweep_fused_staleness_apply``); YoGi takes the
      aggregate (``sweep_fused_staleness_aggregate``) and steps its own
-     state.
+     state.  An attacked or robust round instead rewrites the attacker
+     rows and runs the robust strategy (``robust.aggregators.robust_cell``,
+     the flat path's function) before FedAvg or YoGi; there
+     ``use_agg_kernel`` routes only the coordinate-wise trim through its
+     kernel (``kernels.trimmed_agg``).
 
 The model row, the cache rows and the YoGi state are kept ``d_pad`` wide
-under the kernel (D rounded up to its 2048-column block); the pad columns
-stay exact zeros (zero in YoGi's m and v too) because the deltas are
-zero-padded where they are made and every server operation is columnwise.
+under the SAA kernels (D rounded up to their 2048-column block); the pad
+columns stay exact zeros (zero in YoGi's m and v too) because the deltas
+are zero-padded where they are made and every server operation is
+columnwise.  Attacked and robust runs keep the true D, as the reference
+does: their row norms, means and distances reduce over the last axis, and
+reducing over the pad would change their bits.
 The reference pads participant counts to shape buckets to bound XLA
 recompiles; eager PyTorch runs the exact shapes (padding never changes a
 result in the reference either).
@@ -35,14 +42,15 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core.aggregation import (aggregate_updates, flat_dim,
+from repro_torch.core.aggregation import (flat_dim, no_stale_aggregate,
                                           unflatten_update,
                                           weights_and_aggregate_by_id,
                                           yogi_apply_flat, yogi_init_flat)
 from repro_torch.core.stale_cache import DeviceStaleCache
-from repro_torch.core.staleness import EPS, RULE_ID
+from repro_torch.core.staleness import RULE_ID
 from repro_torch.kernels.staleness_agg import ops as saa_ops
-from repro_torch.sim.engine import _InFlight
+from repro_torch.robust.aggregators import robust_cell
+from repro_torch.sim.engine import _InFlight, agg_lids
 
 
 def _quarantine_frees(sched) -> list:
@@ -59,8 +67,9 @@ class RoundPipeline:
         self.device = dev = sim.device
         self.spec = sim._flat_spec
         self.d = flat_dim(self.spec)
-        self.d_pad = (self.d + (-self.d) % saa_ops.D_BLK if cfg.use_agg_kernel
-                      else self.d)
+        self.robust = sim._attack is not None or sim._robust is not None
+        self.d_pad = (self.d + (-self.d) % saa_ops.D_BLK
+                      if cfg.use_agg_kernel and not self.robust else self.d)
         # (1, d_pad): the kernel's (S, D) params operand with S = 1
         self.params = torch.zeros((1, self.d_pad), dtype=torch.float32,
                                   device=dev)
@@ -112,7 +121,7 @@ class RoundPipeline:
                                            len(sched.fresh_rows),
                                            len(sched.landing))
         with record_function("round.device"):
-            self._device_round(plan, sched)
+            self._device_round(r, plan, sched)
         if sim.eval_due(r):
             with record_function("round.eval"):
                 acc, loss = sim._model_fns.evaluate(
@@ -121,23 +130,26 @@ class RoundPipeline:
                 sim._fill_round_eval(rec, acc, loss, progress=self.progress)
         return rec
 
-    def _device_round(self, plan, sched) -> None:
+    def _device_round(self, r, plan, sched) -> None:
         sim = self.sim
         cfg = sim.cfg
         surv, pos = sim.survivors(plan)
         nf, ns = len(sched.fresh_rows), len(sched.landing)
         # one host->device copy per round: every index the round needs,
-        # and the aggregation rows' staleness (fresh rows first)
+        # the aggregation rows' staleness (fresh rows first) and, under an
+        # attack, their attacker flags
+        att = sim.attack_flags(r, agg_lids(plan, sched))
         parts = [plan.bidx[surv].ravel(),
                  pos[[row for row, _l, _a, _d in sched.new_stale]],
                  sched.slots, pos[sched.fresh_rows],
                  [f.delta for f in sched.landing],
-                 [0] * nf + sched.landing_taus]
+                 [0] * nf + sched.landing_taus,
+                 [] if att is None else att]
         sizes = [len(p) for p in parts]
         ints = torch.as_tensor(np.concatenate(parts).astype(np.int64),
                                device=self.device)
-        bidx, stale_rows, slots, fresh_pos, land_slots, taus = torch.split(
-            ints, sizes)
+        bidx, stale_rows, slots, fresh_pos, land_slots, taus, att_t = \
+            torch.split(ints, sizes)
 
         if len(surv):
             deltas, _, _ = sim.train_cohort(
@@ -151,21 +163,25 @@ class RoundPipeline:
         fresh = torch.arange(nf + ns, device=self.device) < nf
         tau = taus.to(torch.int32)
         valid = torch.ones_like(fresh)
-        if cfg.use_agg_kernel and not self.yogi:
+        if self.robust:
+            agg, counts = robust_cell(
+                u, fresh, tau, valid, att_t.bool(), attack=sim._attack,
+                robust=sim._robust, beta=cfg.beta,
+                rule_id=RULE_ID[cfg.scaling_rule],
+                use_kernel=cfg.use_agg_kernel, no_stale=ns == 0)
+            sim.robust_counts += counts
+        elif cfg.use_agg_kernel and not self.yogi:
             saa_ops.sweep_fused_staleness_apply(
                 self.params, u[None], fresh[None], tau[None], valid[None],
                 self._scal, rule=cfg.scaling_rule)
             return
-        if cfg.use_agg_kernel:
+        elif cfg.use_agg_kernel:
             agg, _ = saa_ops.sweep_fused_staleness_aggregate(
                 u[None], fresh[None], tau[None], self._beta, valid[None],
                 rule=cfg.scaling_rule)
             agg = agg[0]
         elif ns == 0:
-            # no stale rows: Eq. 2 degenerates to the fresh average (the
-            # same weight bits as the general path: fresh rows weigh 1)
-            w = fresh.to(torch.float32)
-            agg = aggregate_updates(u, w / torch.clamp(w.sum(), min=EPS))
+            agg = no_stale_aggregate(u, fresh, valid)
         else:
             agg, _ = weights_and_aggregate_by_id(
                 u, fresh, tau, valid, cfg.beta, RULE_ID[cfg.scaling_rule])

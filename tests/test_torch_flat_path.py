@@ -190,10 +190,10 @@ def test_flat_rounds_match_reference_flat_path(variant):
         t_end, fresh_j, stale_j, taus_j, lids = ref._collect_updates(
             r, plan_j, deltas_j, losses, l2s)
         deltas_t, pos, l2s_t = sim._train(plan_t)
-        t_end_t, fresh_t, stale_t, taus_t = sim._collect_updates(
+        t_end_t, fresh_t, stale_t, taus_t, lids_t = sim._collect_updates(
             r, plan_t, deltas_t, pos, l2s_t)
-        assert (t_end_t, len(fresh_t), len(stale_t), list(taus_t)) == \
-            (t_end, len(fresh_j), len(stale_j), list(taus_j))
+        assert (t_end_t, len(fresh_t), len(stale_t), list(taus_t), lids_t) == \
+            (t_end, len(fresh_j), len(stale_j), list(taus_j), lids)
         # selector feedback and the stragglers' stat utility, from l2 stats
         _check_feedback(*feedback.values())
         np.testing.assert_allclose([f.stat_util for f in sim.stale_cache],
@@ -202,7 +202,7 @@ def test_flat_rounds_match_reference_flat_path(variant):
         stale_rows += len(stale_t)
         if fresh_j or stale_j:
             agg_j = np.asarray(ref._aggregate(r, lids, fresh_j, stale_j, taus_j))
-            agg_t = sim._aggregate(fresh_t, stale_t, taus_t)
+            agg_t = sim._aggregate(r, lids_t, fresh_t, stale_t, taus_t)
             np.testing.assert_allclose(agg_t.numpy(), agg_j, rtol=1e-4,
                                        atol=1e-6)
             v_prev = np.asarray(ref.flat_opt_state["v"]) if yogi else None

@@ -48,7 +48,9 @@ def test_no_source_mentions_jax_or_reference_imports():
     assert not bad, bad
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
-    assert "repro_torch.kernels.staleness_agg.ops" in names
+    for name in ("kernels.staleness_agg.ops", "kernels.trimmed_agg.ops",
+                 "faults.attacks", "faults.plan", "robust.aggregators"):
+        assert f"repro_torch.{name}" in names
 
 
 def test_simulator_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
@@ -61,8 +63,6 @@ def test_simulator_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
 
 @pytest.mark.parametrize("override,item", [
     (dict(fast_path=False), 15),
-    (dict(aggregator="trimmed_mean"), 11),
-    (dict(attack="alie"), 10),
     (dict(guard=True), 10),
     (dict(telemetry=2), 12),
     (dict(rounds_per_dispatch=4), 8),
@@ -72,8 +72,6 @@ def test_simulator_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
     (dict(selector="oort"), 6),
     (dict(selector="safa"), 6),
     (dict(fused_rounds=False, guard=True), 10),
-    (dict(fused_rounds=False, attack="alie"), 10),
-    (dict(fused_rounds=False, aggregator="krum"), 11),
     (dict(fused_rounds=False, telemetry=1), 12),
 ])
 def test_out_of_slice_configs_name_their_roadmap_item(override, item):
@@ -82,16 +80,33 @@ def test_out_of_slice_configs_name_their_roadmap_item(override, item):
         SimConfig(**override)
 
 
-@pytest.mark.parametrize("override,server_opt", [
-    (dict(fused_rounds=False), "fedavg"),
-    (dict(server_opt="yogi"), "yogi"),
-    (dict(aggregator="yogi"), "yogi"),
+def test_fault_plan_with_specs_names_its_roadmap_item():
+    """A fault plan's corruption, drops, replays and crashes are not ported;
+    its attacker sets are."""
+    from repro_torch.faults import FaultPlan, FaultSpec
+    cfg = SimConfig(n_learners=10, rounds=2)
+    plan = FaultPlan(10, 2, specs=(FaultSpec("nan", prob=0.5),), seed=0)
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md queue 1 item 10\)"):
+        Simulator(cfg, device="cpu", fault_plan=plan)
+
+
+@pytest.mark.parametrize("override,server_opt,aggregator,attack", [
+    (dict(fused_rounds=False), "fedavg", "saa", "none"),
+    (dict(server_opt="yogi"), "yogi", "saa", "none"),
+    (dict(aggregator="yogi"), "yogi", "saa", "none"),
+    (dict(aggregator="trimmed_mean"), "fedavg", "trimmed_mean", "none"),
+    (dict(attack="alie"), "fedavg", "saa", "alie"),
+    (dict(fused_rounds=False, attack="alie"), "fedavg", "saa", "alie"),
+    (dict(fused_rounds=False, aggregator="krum"), "fedavg", "krum", "none"),
 ])
-def test_slice_configs_accepted(override, server_opt):
-    """The per-stage flat path and the YoGi server step (also under its old
-    name ``aggregator="yogi"``) are in the slice."""
+def test_slice_configs_accepted(override, server_opt, aggregator, attack):
+    """The per-stage flat path, the YoGi server step (also under its old
+    name ``aggregator="yogi"``), the robust aggregators and the coordinated
+    attacks are in the slice, on both substrates."""
     cfg = SimConfig(**override)
-    assert cfg.server_opt == server_opt and cfg.aggregator == "saa"
+    assert (cfg.server_opt, cfg.aggregator, cfg.attack) == \
+        (server_opt, aggregator, attack)
 
 
 def test_slice_configs_are_accepted():
