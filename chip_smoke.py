@@ -14,7 +14,12 @@ From the repository root, with nothing built beforehand.  It
      trimmed-mean kernel against its plain version (mixed trim depths and
      valid counts, +inf exclusion rows, D off the 2048 block, ties, even
      and odd medians, degenerate cells); after step 4 it does the same at every
-     participant count n the paths ran a kernel at;
+     participant count n the paths ran a kernel at; holds the sliding-window
+     attention kernel (fp32 and bf16, GQA groups 1-8, head dims 64 and 128,
+     windows 128, 384 and 8192, S below, at and past the window) and the
+     WKV6 kernel (head sizes 8-64, S of 1, 200 and 4096, with and without an
+     initial state, a state carried across calls) against their plain
+     versions, each also at the serve path's shape;
   4. drives the port's paths at full width, each with the launch counters
      zeroed just before it and read just after: at the quickstart's scale
      the fused pipeline's Random and RELAY campaigns
@@ -31,14 +36,19 @@ From the repository root, with nothing built beforehand.  It
      Every kernel must launch exactly once per round that aggregated on
      its path, and no other kernel may launch; then each campaign is timed
      warm (rounds/s) and profiled (device busy share, host spans, top GPU
-     kernels);
+     kernels); then the model zoo's serve path in bf16: internlm2-1.8b+swa
+     prefill and logits (``swa_attention_bhsd``), rwkv6-1.6b prefill
+     (``wkv6_bhsn``) and greedy requests of each;
   5. checks the result: finite parameters of the model's width; each flat
      campaign equal to its fused twin bit for bit (records, params and
      robust counters); host records, attacker sets and robust counters
      equal to a CPU run of every campaign; coord_median ahead of attacked
      saa in final accuracy (the example's own pass rule); small RELAY,
      RELAY+YoGi, RELAY flat and attacked coord_median runs on the GPU
-     close to the same runs on the CPU;
+     close to the same runs on the CPU; the serve path's logits finite,
+     close to a run of the plain versions (bf16: no further from the fp32
+     model than the plain versions' bf16 run), prefill equal to decode after
+     a short prompt, and the reduced configs on the GPU equal to the CPU;
   6. times each kernel, its plain version and (where one exists) the one
      PyTorch call that computes the same function, and prints their bounds.
 It exits non-zero, printing no result, on any failure or without a GPU.
@@ -96,6 +106,48 @@ RACE = dict(n_learners=100, rounds=40, eval_every=10, n_target=10,
             mapping="label_uniform", seed=0, setting="DL", deadline=1e6,
             attack="collude_signflip", attack_frac=0.1, attack_scale=50.0,
             use_agg_kernel=True)
+# the model zoo's serve path: the two kernels, their sources and TPU defs
+SWA, WKV = "swa_attention_bhsd", "wkv6_bhsn"
+LM_SOURCES = {SWA: "src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu",
+              WKV: "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"}
+LM_REPLACES = {SWA: "src/repro/kernels/swa_attention/swa_attention.py:65",
+               WKV: "src/repro/kernels/wkv6/wkv6.py:62"}
+# H100 SXM dense bf16 tensor-core rate: attention's bound
+PEAK_BF16_FLOPS = 989e12
+# kernel vs plain version: fp32 as the JAX package holds its Pallas kernels
+# (1e-4 attention, rtol 1e-4 / atol 1e-5 the scan); bf16 outputs compared in
+# fp32 after the cast.  Both attention versions sum in fp32 and round once
+# to bf16 (one ulp is at most 2^-8 of a value), so bf16 attention is held
+# to 4 ulps with an atol under a tenth of the path's typical output (rms
+# ~0.018 over 8192 keys), and to a relative L2 error of SWA_BF16_REL_L2
+# (output rounding alone gives ~1e-3); the scan's bf16 y at the reference's
+# bf16 kernel tolerance, 3e-2
+LM_TOL = {(SWA, "fp32"): (1e-4, 1e-4), (SWA, "bf16"): (1.6e-2, 1e-3),
+          (WKV, "fp32"): (1e-4, 1e-5), (WKV, "bf16"): (3e-2, 3e-2)}
+SWA_BF16_REL_L2 = 5e-3
+# whole-model logits, kernel path vs plain versions on the same weights:
+# relative L2 error in fp32 (the two sum in other orders; 1e-3 is the
+# GPU-vs-CPU rule's rtol).  In bf16 a rounding flip at one layer grows
+# through the depth, so the bf16 kernel path is held to be no further from
+# the fp32 model (the plain versions in fp32) than the plain versions' own
+# bf16 run: relative L2 <= ratio * the plain run's + margin.  Two bf16
+# results of one function on the same hidden states (prefill's last
+# logits, the full logits' last row) are held to 3e-2.
+FP32_REL_L2 = 1e-3
+BF16_DRIFT = (1.25, 1e-3)
+LOGIT_REL_L2 = 3e-2
+# rwkv6's plain scan is ~0.6 s a layer at 4,096 steps: its comparison runs
+# the first 512 tokens of the path's batch (same width, same batch)
+WKV_PLAIN_S = 512
+# the serve path's shapes: internlm2-1.8b+swa prefill (two windows), rwkv6
+# prefill at train_4k's length, requests as examples/serve_model.py sends them
+SWA_PATH = dict(B=1, S=16_384)
+WKV_PATH = dict(B=8, S=4_096)
+REQUESTS = dict(B=4, prompt=12, gen=24)
+# the requests' profile: 4 prompt + 4 generated tokens (the profiler's cost
+# grows with its ~2,000 GPU kernels a decode step)
+PROFILE_REQUESTS = dict(prompt=4, gen=4)
+
 DEFENSES = {               # campaign -> (aggregator settings, its kernel)
     "saa (attacked)": ({}, None),
     "coord_median": (dict(aggregator="coord_median"), TRIM),
@@ -154,11 +206,13 @@ class Checks:
         self.err = Counter()
         self.rel = Counter()
 
-    def close(self, kernel, got, want, what, weights=False):
+    def close(self, kernel, got, want, what, weights=False, tol=None):
         """``weights``: hold to the weights' (and the trimmed mean's)
-        tolerance, else to the aggregates'."""
+        tolerance, else to the aggregates'; ``tol``: (rtol, atol) instead.
+        Both are compared in fp32."""
         torch = self.torch
-        rtol, atol = (W_RTOL, W_ATOL) if weights else (P_RTOL, P_ATOL)
+        rtol, atol = tol or ((W_RTOL, W_ATOL) if weights else (P_RTOL, P_ATOL))
+        got, want = got.float(), want.float()
         if not torch.isfinite(got).all():
             fail(f"{kernel}: non-finite output at {what}")
         err = (got - want).abs().max().item() if got.numel() else 0.0
@@ -428,6 +482,497 @@ def time_trimmed(torch, ops, ref, n, d, iters, gen) -> dict:
             "library_ms": None, "library_device_ms": None}
 
 
+# --- the model zoo's serve path: kernels 8 and 9 --------------------------
+
+
+def live_pairs(s, window) -> int:
+    """(query, key) pairs of one sequence with j <= i and i - j < window."""
+    w = min(s, window)
+    return w * (w + 1) // 2 + (s - w) * window
+
+
+def swa_cost(b, s, h, hkv, dh, window, elem):
+    """(bytes, flops) sliding-window attention needs: q, k, v read once and
+    the output written once (``elem`` bytes an element); per live pair
+    2 Dh flops for q.k and 2 Dh for p v (the exponentials are not counted)."""
+    return (elem * b * s * dh * (2 * h + 2 * hkv),
+            4 * dh * h * b * live_pairs(s, window))
+
+
+def wkv_cost(b, s, h, n, elem, with_s0):
+    """(bytes, flops) WKV6 needs: r, k, v (``elem`` bytes) and w (fp32)
+    read once, u and s0 read once, y (``elem``) and the final state (fp32)
+    written once; per (batch, head, step) 2 N^2 flops for r.S and 3 N^2 for
+    the state's decay and outer product."""
+    seq = b * s * h * n
+    return (seq * (4 * elem + 4) + h * n * 4 + b * h * n * n * 4 * (2 if with_s0 else 1),
+            5 * n * n * b * h * s)
+
+
+def swa_inputs(torch, b, s, h, hkv, dh, dtype, gen):
+    mk = lambda heads: torch.randn((b, s, heads, dh), generator=gen,
+                                   device="cuda").to(dtype)
+    return mk(h), mk(hkv), mk(hkv)
+
+
+def wkv_inputs(torch, b, s, h, n, dtype, with_s0, gen):
+    """r, k, v (0.5 N(0, 1) in ``dtype``), w in [0.8, 0.999), u, s0 (fp32
+    or None), as the JAX package's kernel test draws them."""
+    mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = (0.5 * mk(b, s, h, n)).to(dtype), (0.5 * mk(b, s, h, n)).to(dtype), \
+        (0.5 * mk(b, s, h, n)).to(dtype)
+    w = 0.8 + 0.199 * torch.rand((b, s, h, n), generator=gen, device="cuda")
+    s0 = 0.1 * mk(b, h, n, n) if with_s0 else None
+    return r, k, v, w, 0.1 * mk(h, n), s0
+
+
+def dtype_label(torch, dtype) -> str:
+    return "fp32" if dtype == torch.float32 else "bf16"
+
+
+def check_swa(torch, ops, ref, checks, b, s, h, hkv, dh, window, dtype, gen,
+              bhsd=False):
+    """The attention kernel against its plain version on one set of
+    operands; ``bhsd`` also runs the TPU layout's entry, which must give the
+    same bits (one kernel, other strides).  Returns (max abs error,
+    relative L2 error)."""
+    q, k, v = swa_inputs(torch, b, s, h, hkv, dh, dtype, gen)
+    got = ops.swa_attention(q, k, v, window=window)
+    want = ref.swa_attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    label = dtype_label(torch, dtype)
+    what = f"B={b} S={s} H={h} Hkv={hkv} Dh={dh} window={window} {label}"
+    checks.close(SWA, got, want, what, tol=LM_TOL[(SWA, label)])
+    err, rel = (got.float() - want.float()).abs().max().item(), rel_l2(torch, got, want)
+    if label == "bf16" and rel > SWA_BF16_REL_L2:
+        fail(f"{SWA}: relative L2 error {rel:.3g} from its plain version at {what} "
+             f"(limit {SWA_BF16_REL_L2})")
+    if bhsd:
+        rows = lambda t: t.transpose(1, 2).reshape(-1, s, dh)
+        got2 = ops.swa_attention_bhsd(rows(q), rows(k), rows(v), window=window,
+                                      n_kv_heads=hkv)
+        if not torch.equal(got2, rows(got)):
+            fail(f"{SWA}: the (B*H, S, Dh) entry differs from the model layout's at {what}")
+    checks.count(SWA)
+    return err, rel
+
+
+def check_wkv(torch, ops, ref, checks, b, s, h, n, dtype, with_s0, gen):
+    """The WKV6 kernel against its plain version; the state carried from a
+    first call into a second equals one call bit for bit, and the
+    (B*H, S, N) entry gives the same bits as the model layout's."""
+    r, k, v, w, u, s0 = wkv_inputs(torch, b, s, h, n, dtype, with_s0, gen)
+    y, st = ops.wkv6(r, k, v, w, u, state0=s0)
+    y_r, st_r = ref.wkv6_scan(r, k, v, w, u, state0=s0)
+    torch.cuda.synchronize()
+    label = dtype_label(torch, dtype)
+    what = f"B={b} S={s} H={h} N={n} {label} s0={with_s0}"
+    checks.close(WKV, y, y_r, what, tol=LM_TOL[(WKV, label)])
+    checks.close(WKV, st, st_r, what, tol=LM_TOL[(WKV, "fp32")])
+    if s > 1:
+        c = s // 3 or 1
+        y1, s1 = ops.wkv6(r[:, :c], k[:, :c], v[:, :c], w[:, :c], u, state0=s0)
+        y2, s2 = ops.wkv6(r[:, c:], k[:, c:], v[:, c:], w[:, c:], u, state0=s1)
+        if not (torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(s2, st)):
+            fail(f"{WKV}: a state carried across calls differs from one call at {what}")
+    rows = lambda t: t.transpose(1, 2).reshape(b * h, s, n)
+    y3, s3 = ops.wkv6_bhsn(rows(r), rows(k), rows(v), rows(w),
+                           u.expand(b, h, n).reshape(b * h, 1, n),
+                           (torch.zeros((b, h, n, n), device="cuda") if s0 is None
+                            else s0).reshape(b * h, n, n))
+    if not (torch.equal(y3, rows(y)) and torch.equal(s3, st.reshape(b * h, n, n))):
+        fail(f"{WKV}: the (B*H, S, N) entry differs from the model layout's at {what}")
+    checks.count(WKV)
+
+
+def check_lm_kernels(torch, checks, gen):
+    """Kernels 8 and 9 against their plain versions on a grid of shapes and
+    at the serve path's own.  Returns attention's largest errors by dtype,
+    over the grid and at the path's shape."""
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+    from repro_torch.kernels.swa_attention import ref as swa_ref
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+    dtypes = (torch.float32, torch.bfloat16)
+    swa = {}
+
+    def note(where, dt, err_rel):
+        key = f"{where} {dtype_label(torch, dt)}"
+        old = swa.get(key, {"max_abs": 0.0, "rel_l2": 0.0})
+        swa[key] = {"max_abs": max(old["max_abs"], err_rel[0]),
+                    "rel_l2": max(old["rel_l2"], err_rel[1])}
+    for window in (128, 384):     # S below, at and past the window, off the tile
+        for s in (window - 37, window, window + 200, 3 * window + 5):
+            for g in (1, 2, 4, 8):
+                for dh in (64, 128):
+                    for dt in dtypes:
+                        note("grid", dt, check_swa(
+                            torch, swa_ops, swa_ref, checks, 2, s, 8, 8 // g, dh,
+                            window, dt, gen, bhsd=g == 2))
+    for s in (8000, 8192, 9000):  # the path's window: 8192 live keys a query
+        for dt in dtypes:
+            note("grid", dt, check_swa(torch, swa_ops, swa_ref, checks, 1, s, 4, 2,
+                                       128, 8192, dt, gen, bhsd=True))
+    for dt in dtypes:
+        note("path", dt, check_swa(torch, swa_ops, swa_ref, checks, SWA_PATH["B"],
+                                   SWA_PATH["S"], 16, 8, 128, 8192, dt, gen))
+    for n in (8, 16, 32, 64):
+        for s in (1, 200, 4096):
+            for with_s0 in (True, False):
+                check_wkv(torch, wkv_ops, wkv_ref, checks, 2, s, 4, n,
+                          torch.float32, with_s0, gen)
+        check_wkv(torch, wkv_ops, wkv_ref, checks, 2, 200, 4, n, torch.bfloat16,
+                  True, gen)
+    check_wkv(torch, wkv_ops, wkv_ref, checks, WKV_PATH["B"], WKV_PATH["S"], 32, 64,
+              torch.bfloat16, False, gen)
+    for k in (SWA, WKV):
+        print(f"{k} == plain version in {checks.n[k]} checks (max abs err "
+              f"{checks.err[k]:.3g}, relative {checks.rel[k]:.3g}; fp32 with TF32 "
+              f"off, bf16 outputs compared in fp32; tolerances {LM_TOL})")
+    print(f"{SWA} largest errors (grid, and the path's 1 x {SWA_PATH['S']} x 16 "
+          f"heads, window 8192): " + "; ".join(
+              f"{k} max abs {v['max_abs']:.3g}, relative L2 {v['rel_l2']:.3g}"
+              for k, v in swa.items())
+          + f" (bf16 relative L2 limit {SWA_BF16_REL_L2})")
+    return swa
+
+
+def rel_l2(torch, got, want, rows=1024) -> float:
+    """||got - want|| / ||want|| in fp32, over (B, S, V) in slices of S."""
+    num = den = 0.0
+    for i in range(0, got.shape[1], rows):
+        g, w = got[:, i:i + rows].float(), want[:, i:i + rows].float()
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def serve_paths(torch) -> dict:
+    """The serve path at full width in bf16, weights from a seeded
+    ``torch.Generator`` on the card: internlm2-1.8b+swa prefill and
+    full-sequence logits on 16,384 tokens, rwkv6-1.6b prefill on 8 x 4,096,
+    and requests through ``greedy_generate`` for each; launch counters
+    zeroed before each step and read after it.  Held: exact launch counts,
+    finite logits, the kernel path's logits against the plain versions'
+    on the same weights (fp32, relative L2; bf16, each one's distance from
+    the fp32 model), prefill == decode after a short prompt (fp32, full
+    width, relative L2), and the reduced configs on the card against the
+    CPU."""
+    import dataclasses
+    from repro_torch.configs import adapt_for_shape, get_config, get_reduced, shape_for
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.serve import make_decode_step, make_logits_fn, make_prefill_step
+    from repro_torch.models import decode_step, init_decode_state, init_params, prefill
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serve_model import serve
+
+    out = {"launches": Counter(), "steps": {}, "models": {}}
+
+    def step(name, fn, want, record=True):
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = dict(LAUNCHES)
+        if got != want:
+            fail(f"{name}: launches {got}, expected {want}")
+        if record:
+            out["launches"].update(got)
+            out["steps"][name] = {"launches": got, "seconds": secs}
+            print(f"{name}: launches {got} in {secs:.3f}s")
+        return res, secs
+
+    def finite(name, t):
+        if not torch.isfinite(t).all():
+            fail(f"{name}: non-finite logits")
+
+    def fp32(cfg, params):
+        return (dataclasses.replace(cfg, param_dtype=torch.float32),
+                tree_map(lambda t: t.float() if t.is_floating_point() else t, params))
+
+    def versus_plain(name, cfg, params, batch, logits_of):
+        """The kernel path's logits against the plain versions' on the same
+        weights and batch.  fp32: relative L2 within FP32_REL_L2.  bf16: the
+        kernel path's distance from the fp32 model (the plain versions in
+        fp32) within BF16_DRIFT of the plain versions' own bf16 distance.
+        Comparison runs: launches not counted."""
+        plain = lambda c, p: logits_of(dataclasses.replace(c, use_kernels=False), p)
+        agree = lambda a, b: float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        c32, p32 = fp32(cfg, params)
+        with torch.inference_mode():
+            ref = plain(c32, p32)
+            got = logits_of(c32, p32)
+            finite(f"{name} fp32", got)
+            res = {"fp32": rel_l2(torch, got, ref), "fp32_argmax_agreement": agree(got, ref)}
+            del got, p32
+            torch.cuda.empty_cache()
+            got, want = logits_of(cfg, params), plain(cfg, params)
+        finite(f"{name} bf16", got)
+        res.update(bf16=rel_l2(torch, got, want), bf16_argmax_agreement=agree(got, want),
+                   bf16_kernel_vs_fp32=rel_l2(torch, got, ref),
+                   bf16_plain_vs_fp32=rel_l2(torch, want, ref))
+        del got, want, ref
+        torch.cuda.empty_cache()
+        ratio, margin = BF16_DRIFT
+        res["bf16_limit"] = ratio * res["bf16_plain_vs_fp32"] + margin
+        if res["fp32"] > FP32_REL_L2:
+            fail(f"{name}: kernel path vs plain versions, fp32 logits relative L2 "
+                 f"{res['fp32']:.3g} (limit {FP32_REL_L2})")
+        if res["bf16_kernel_vs_fp32"] > res["bf16_limit"]:
+            fail(f"{name}: bf16 kernel path's logits are further from the fp32 model "
+                 f"than the plain versions' bf16 run: {res}")
+        print(f"{name}: logits of the kernel path vs the plain versions, relative "
+              f"L2 {res['fp32']:.3g} in fp32 (argmax agreement "
+              f"{res['fp32_argmax_agreement']:.4f}), {res['bf16']:.3g} in bf16 "
+              f"({res['bf16_argmax_agreement']:.4f}); bf16 vs the fp32 model: kernel "
+              f"path {res['bf16_kernel_vs_fp32']:.4g}, plain versions "
+              f"{res['bf16_plain_vs_fp32']:.4g} (limit {res['bf16_limit']:.4g})")
+        return res
+
+    def identity(name, cfg, params, gen):
+        """Prefill's last logits == the same prompt fed through decode, in
+        fp32 at full width: relative L2 within FP32_REL_L2, beside the
+        kernel path's distance from the plain versions on the same prompt
+        (the model's own fp32 noise: prefill and decode run their matrix
+        products at other shapes)."""
+        cfg32, p32 = fp32(cfg, params)
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        with torch.inference_mode():
+            lp, _ = prefill(cfg32, p32, {"tokens": toks})
+            lplain, _ = prefill(dataclasses.replace(cfg32, use_kernels=False), p32,
+                                {"tokens": toks})
+            st = init_decode_state(cfg32, 2, 65, "cuda")
+            for t in range(64):
+                ld, st = decode_step(cfg32, p32, st, toks[:, t],
+                                     torch.full((2,), t, dtype=torch.int32, device="cuda"))
+        res = {"rel_l2": rel_l2(torch, ld[:, None], lp),
+               "max_abs": (ld - lp[:, 0]).abs().max().item(),
+               "kernel_vs_plain_rel_l2": rel_l2(torch, lp, lplain)}
+        if res["rel_l2"] > FP32_REL_L2:
+            fail(f"{name}: prefill != decode after a 64-token prompt (fp32): {res}")
+        print(f"{name}: prefill == decode after a 64-token prompt, fp32, relative L2 "
+              f"{res['rel_l2']:.3g} (max abs {res['max_abs']:.3g}; kernel vs plain "
+              f"prefill {res['kernel_vs_plain_rel_l2']:.3g})")
+        return res
+
+    def requests(name, cfg, params, gen, want):
+        b, p, n = REQUESTS["B"], REQUESTS["prompt"], REQUESTS["gen"]
+        prompt = torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        with torch.inference_mode():
+            (toks, logits, _), _ = step(f"{name} requests", lambda: serve(
+                cfg, params, prompt, n), want)
+            (toks2, _, _), secs = step(f"{name} requests (warm)", lambda: serve(
+                cfg, params, prompt, n), want, record=False)
+        finite(f"{name} requests", logits)
+        if toks.shape != (b, n + 1) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            fail(f"{name} requests: tokens {tuple(toks.shape)} out of range")
+        if not torch.equal(toks, toks2):
+            fail(f"{name} requests: a second run generated other tokens")
+        pp, pg = PROFILE_REQUESTS["prompt"], PROFILE_REQUESTS["gen"]
+        prof = profile(f"{name} requests ({pp} + {pg} tokens)",
+                       lambda: serve(cfg, params, prompt[:, :pp], pg))
+        print(f"{name} requests: {b * (p + n) / secs:.1f} tokens/s ({b} x {p} prompt "
+              f"+ {n} generated, warm)")
+        return {"decode_tokens_per_s": b * (p + n) / secs, "decode_seconds": secs,
+                "decode_profile": prof, "sample": toks[0, :16].tolist()}
+
+    def profile(name, run):
+        with torch.inference_mode():
+            prof = profile_campaign(torch, run)
+        idle = prof["device_idle_share"]
+        print(f"{name} profile: {prof['gpu_kernels']} GPU kernels, device busy "
+              f"{prof['device_busy_ms']:.1f} of {prof['wall_ms']:.1f} ms (idle share "
+              f"{'not measured' if idle is None else f'{idle:.3f}'}); top: " + ", ".join(
+                  f"{k[:40]} {v:.1f}" for k, v in list(prof["top_kernels_ms"].items())[:3]))
+        return prof
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # internlm2-1.8b with the repo's sliding-window adaptation (long_500k)
+    cfg = dataclasses.replace(adapt_for_shape(get_config("internlm2-1.8b"),
+                                              shape_for("long_500k")), use_kernels=True)
+    if cfg.window != 8192 or cfg.arch_id != "internlm2-1.8b+swa":
+        fail(f"unexpected config {cfg.arch_id} window {cfg.window}")
+    params = init_params(cfg, gen)
+    n_params = sum(t.numel() for t in _leaves(params))
+    b, s = SWA_PATH["B"], SWA_PATH["S"]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    pre = make_prefill_step(cfg)
+    (lp, states), _ = step(f"{cfg.arch_id} prefill", lambda: pre(params, batch), {SWA: 24})
+    _, t_pre = step(f"{cfg.arch_id} prefill (warm)", lambda: pre(params, batch),
+                    {SWA: 24}, record=False)
+    finite("internlm2 prefill", lp)
+    print(f"{cfg.arch_id} prefill: {b * s / t_pre:.0f} tokens/s (warm)")
+    prof_pre = profile(f"{cfg.arch_id} prefill", lambda: pre(params, batch))
+    if lp.shape != (b, 1, cfg.vocab_size) or states["stack"]["sub0"]["k"].shape != \
+            (24, b, s, cfg.n_kv_heads, cfg.head_dim):
+        fail(f"internlm2 prefill: shapes {tuple(lp.shape)}")
+    del states
+    la, _ = step(f"{cfg.arch_id} logits", lambda: make_logits_fn(cfg)(params, batch),
+                 {SWA: 24})
+    finite("internlm2 logits", la)
+    rel_last = rel_l2(torch, lp, la[:, -1:])
+    if rel_last > LOGIT_REL_L2:
+        fail(f"internlm2: prefill's last logits vs the logits' last row, relative L2 "
+             f"{rel_last:.3g} (limit {LOGIT_REL_L2})")
+    del la, lp
+    torch.cuda.empty_cache()
+    vs = versus_plain("internlm2", cfg, params, batch,
+                      lambda c, p: make_logits_fn(c)(p, batch))
+    out["models"][cfg.arch_id] = {
+        "params": n_params, "prefill_shape": [b, s],
+        "prefill_seconds": t_pre, "prefill_tokens_per_s": b * s / t_pre,
+        "prefill_profile": prof_pre, "prefill_vs_logits_rel_l2": rel_last,
+        "logits_vs_plain_rel_l2": vs,
+        "prefill_eq_decode": identity("internlm2", cfg, params, gen),
+        **requests(cfg.arch_id, cfg, params, gen, {})}
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), use_kernels=True)
+    params = init_params(cfg, gen)
+    n_params = sum(t.numel() for t in _leaves(params))
+    b, s = WKV_PATH["B"], WKV_PATH["S"]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    pre = make_prefill_step(cfg)
+    (lp, states), _ = step(f"{cfg.arch_id} prefill", lambda: pre(params, batch), {WKV: 24})
+    _, t_pre = step(f"{cfg.arch_id} prefill (warm)", lambda: pre(params, batch),
+                    {WKV: 24}, record=False)
+    finite("rwkv6 prefill", lp)
+    del lp, states
+    print(f"{cfg.arch_id} prefill: {b * s / t_pre:.0f} tokens/s (warm)")
+    prof_pre = profile(f"{cfg.arch_id} prefill", lambda: pre(params, batch))
+    short = {"tokens": batch["tokens"][:, :WKV_PLAIN_S]}
+    vs = versus_plain("rwkv6", cfg, params, short,
+                      lambda c, p: make_prefill_step(c)(p, short)[0])
+    out["models"][cfg.arch_id] = {
+        "params": n_params, "prefill_shape": [b, s],
+        "prefill_seconds": t_pre, "prefill_tokens_per_s": b * s / t_pre,
+        "prefill_profile": prof_pre,
+        "logits_vs_plain_rel_l2": dict(vs, shape=[b, WKV_PLAIN_S]),
+        "prefill_eq_decode": identity("rwkv6", cfg, params, gen),
+        **requests(cfg.arch_id, cfg, params, gen,
+                   {WKV: 24 * (REQUESTS["prompt"] + REQUESTS["gen"])})}
+    del params
+    torch.cuda.empty_cache()
+
+    # the reduced configs in fp32: the card against the CPU
+    out["reduced_gpu_vs_cpu_max_abs"] = {}
+    for arch, over in (("internlm2-1.8b", dict(window=128)), ("rwkv6-1.6b", {})):
+        cfg = dataclasses.replace(get_reduced(arch), param_dtype=torch.float32,
+                                  use_kernels=True, **over)
+        p_cpu = init_params(cfg, torch.Generator().manual_seed(0))
+        toks = torch.randint(0, cfg.vocab_size, (2, 200),
+                             generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), p_cpu)
+            bt = {"tokens": toks.to(dev)}
+            lp, st = make_prefill_step(cfg)(p, bt)
+            la = make_logits_fn(cfg)(p, bt)
+            state, dec = init_decode_state(cfg, 2, 9, dev), make_decode_step(cfg)
+            lds = []
+            for t in range(8):
+                ld, state = dec(p, state, toks[:, t].to(dev),
+                                torch.full((2,), t, dtype=torch.int32, device=dev))
+                lds.append(ld)
+            res[dev] = [lp, la, torch.stack(lds)] + list(_leaves(st))
+        err = 0.0
+        for g, c in zip(res["cuda"], res["cpu"]):
+            g = g.cpu()
+            err = max(err, (g.float() - c.float()).abs().max().item())
+            if not torch.allclose(g.float(), c.float(), rtol=1e-3, atol=1e-4):
+                fail(f"reduced {arch}: the card differs from the CPU by {err}")
+        out["reduced_gpu_vs_cpu_max_abs"][arch] = err
+    print(f"reduced configs, fp32, card == CPU (prefill, logits, 8 decode steps, "
+          f"states): max abs diff {out['reduced_gpu_vs_cpu_max_abs']}")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def time_lm_kernels(torch, gen) -> dict:
+    """Kernels 8 and 9 at the serve path's shapes: events (plain, kernel,
+    kernel, plain) and CUDA-graph device time of the kernel, events of the
+    plain version (one call of it runs for hundreds of milliseconds: no
+    graph), and for attention the one PyTorch call that computes the same
+    function (``scaled_dot_product_attention`` with a boolean band mask and
+    ``enable_gqa``), timed here only, beside each bound."""
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+    from repro_torch.kernels.swa_attention import ref as swa_ref
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+    import torch.nn.functional as F
+    res = {}
+    b, s, h, hkv, dh, window = SWA_PATH["B"], SWA_PATH["S"], 16, 8, 128, 8192
+    q, k, v = swa_inputs(torch, b, s, h, hkv, dh, torch.bfloat16, gen)
+    kern = lambda: swa_ops.swa_attention(q, k, v, window=window)
+    plain = lambda: swa_ref.swa_attention_ref(q, k, v, window=window)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    i = torch.arange(s, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=band,
+                                                 enable_gqa=True)
+    lib_err = (lib().transpose(1, 2).float() - kern().float()).abs().max().item()
+    pr1, k1 = time_ms(torch, plain, 1, warmup=1), time_ms(torch, kern, 5, warmup=1)
+    k2, pr2 = time_ms(torch, kern, 5, warmup=0), time_ms(torch, plain, 1, warmup=0)
+    l1, l2 = time_ms(torch, lib, 3, warmup=1), time_ms(torch, lib, 3, warmup=0)
+    nbytes, flops = swa_cost(b, s, h, hkv, dh, window, 2)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    res[SWA] = {"shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "Dh": dh, "window": window,
+                          "dtype": "bf16"},
+                "ms": min(k1, k2), "ms_runs": [k1, k2], "device_ms": graph_ms(torch, kern, 10),
+                "plain_ms": min(pr1, pr2), "plain_ms_runs": [pr1, pr2],
+                "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
+                "library_max_abs_diff": lib_err, "bytes": nbytes, "flops": flops,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    del q, k, v, qh, kh, vh, band
+    torch.cuda.empty_cache()
+    b, s, h, n = WKV_PATH["B"], WKV_PATH["S"], 32, 64
+    r, k, v, w, u, _ = wkv_inputs(torch, b, s, h, n, torch.bfloat16, False, gen)
+    kern = lambda: wkv_ops.wkv6(r, k, v, w, u)
+    plain = lambda: wkv_ref.wkv6_scan(r, k, v, w, u)
+    pr1, k1 = time_ms(torch, plain, 1, warmup=1), time_ms(torch, kern, 10, warmup=2)
+    k2, pr2 = time_ms(torch, kern, 10, warmup=0), time_ms(torch, plain, 1, warmup=0)
+    nbytes, flops = wkv_cost(b, s, h, n, 2, False)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    res[WKV] = {"shape": {"B": b, "S": s, "H": h, "N": n, "dtype": "bf16 r/k/v, fp32 w"},
+                "ms": min(k1, k2), "ms_runs": [k1, k2], "device_ms": graph_ms(torch, kern),
+                "plain_ms": min(pr1, pr2), "plain_ms_runs": [pr1, pr2],
+                "library_ms": None, "bytes": nbytes, "flops": flops,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    # decode: one step of the requests' batch (S = 1)
+    r, k, v, w, u, s0 = wkv_inputs(torch, REQUESTS["B"], 1, h, n, torch.bfloat16, True, gen)
+    step = lambda: wkv_ops.wkv6(r, k, v, w, u, state0=s0)
+    nbytes, flops = wkv_cost(REQUESTS["B"], 1, h, n, 2, True)
+    res[WKV]["decode_step"] = {"B": REQUESTS["B"], "ms": time_ms(torch, step, 200),
+                               "device_ms": graph_ms(torch, step),
+                               "bound_ms": max(nbytes / PEAK_BYTES_PER_S,
+                                               flops / PEAK_FP32_FLOPS) * 1e3}
+    for kname, t in res.items():
+        lib = "" if t["library_ms"] is None else f", library {t['library_ms']:.4f} ms"
+        print(f"{kname} {t['shape']}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}), "
+              f"plain {t['plain_ms']:.4f} ms{lib}, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']})")
+    d = res[WKV]["decode_step"]
+    print(f"{WKV} decode step B={d['B']}: {d['ms']:.4f} ms (device {d['device_ms']:.4f}), "
+          f"bound {d['bound_ms']:.6f} ms")
+    return res
+
+
 def profile_campaign(torch, run) -> dict:
     """Device busy share, host span times and the top GPU kernels of one
     warm campaign, from a ``torch.profiler`` trace.  Busy time is the sum
@@ -502,7 +1047,15 @@ def main():
 
     fp32_matmuls()        # the plain versions' matmuls in full fp32 too
     report = {"card": card_line(), "kind": torch.cuda.get_device_name(0),
-              "torch": f"{torch.__version__} cuda {torch.version.cuda}"}
+              "torch": f"{torch.__version__} cuda {torch.version.cuda}",
+              "phase_s": {}}
+    t_phase = [time.perf_counter()]
+
+    def lap(phase):
+        """Seconds since the last phase ended, into the report."""
+        now = time.perf_counter()
+        report["phase_s"][phase] = now - t_phase[0]
+        t_phase[0] = now
     print(f"card: {report['card']}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -511,6 +1064,7 @@ def main():
     _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     print(f"built {sorted(_build.SOURCES)} in {report['build_s']:.1f}s")
+    lap("build")
     for name in _build.SOURCES:
         for line in _build.log_path(name).read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -544,6 +1098,9 @@ def main():
               f"(max abs err {checks.err[k]:.3g}, relative {checks.rel[k]:.3g})")
     print("apply kernels == aggregate kernels + torch's params + lr * agg, "
           "bitwise, in every check")
+    lap("SAA and trimmed-mean kernel checks")
+    report["swa_checks"] = check_lm_kernels(torch, checks, gen)
+    lap("LM kernel checks")
 
     # --- 3. the paths, launch counters zeroed just before each ----------
     yogi = dict(CAMPAIGNS["RELAY"], server_opt="yogi")
@@ -652,6 +1209,7 @@ def main():
           f"{sum(checks.n.values()) - before} more checks; max abs err "
           + ", ".join(f"{k} {checks.err[k]:.3g}" for k in REPLACES))
 
+    lap("FL paths and checks at their n")
     # per-campaign rounds/s: a second, warm run of each, then a profile
     report["campaigns"] = {}
     for name, (kw, _) in runs.items():
@@ -682,6 +1240,7 @@ def main():
         for kname, ms in prof["top_kernels_ms"].items():
             print(f"  {ms:9.3f} ms  {kname[:90]}")
 
+    lap("FL campaigns timed and profiled")
     # --- 4. the result is right ----------------------------------------
     d_model = sims["Random"].flat_params.numel()
     for name, a in gpu.items():
@@ -749,6 +1308,13 @@ def main():
           f"runs' params max abs diff {report['small_run_max_abs_diff']} "
           f"(D={p_cpu.numel()})")
 
+    lap("FL results against the CPU")
+    # --- the model zoo's serve path at full width -----------------------
+    serve = serve_paths(torch)
+    launches.update(serve.pop("launches"))
+    report["serve"] = serve
+    lap("serve path")
+
     # --- 5. kernel times ------------------------------------------------
     times = {}
     for kernel in SAA_REPLACES:
@@ -785,6 +1351,9 @@ def main():
     print(f"flat path D pad {times['flat_pad']['shape']} -> {saa_ops.D_BLK}-"
           f"column block: {times['flat_pad']['ms']:.4f} ms (device "
           f"{times['flat_pad']['device_ms']:.4f}) per round")
+    times.update(time_lm_kernels(torch, gen))
+    lap("kernel times")
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in report["phase_s"].items()))
     report.update(times=times, launches=dict(launches),
                   kernel_checks=dict(checks.n), max_abs_err=dict(checks.err),
                   max_rel_err=dict(checks.rel),
@@ -802,7 +1371,13 @@ def main():
         "bound_ms": times[kernel]["main"]["bound_ms"],
         "bound_by": times[kernel]["main"]["bound_by"],
         "library_ms": times[kernel]["main"]["library_ms"],
-    } for kernel in REPLACES]
+    } for kernel in REPLACES] + [{
+        "name": kernel, "route": "cuda", "source": LM_SOURCES[kernel],
+        "replaces": LM_REPLACES[kernel], "launches": launches[kernel],
+        "max_abs_err": checks.err[kernel],
+        **{key: times[kernel][key] for key in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")},
+    } for kernel in LM_REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,13 @@ server step runs through a hand-written CUDA kernel
 The per-stage flat path, YoGi, the robust aggregators
 (``repro_torch.robust``; the coordinate-wise trim through the CUDA kernel
 ``repro_torch.kernels.trimmed_agg``) and coordinated attacks
-(``repro_torch.faults``) run on both substrates.
+(``repro_torch.faults``) run on both substrates.  The model zoo's serve
+path (``repro_torch.models``, ``repro_torch.launch.serve``,
+``python -m repro_torch.serve_model``) serves the global LM for the GQA
+transformer with its sliding window (internlm2-1.8b) and RWKV6
+(rwkv6-1.6b): prefill, full-sequence logits and greedy decode, through the
+CUDA kernels ``repro_torch.kernels.swa_attention`` and
+``repro_torch.kernels.wkv6``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
 there the kernels' plain PyTorch versions run instead.

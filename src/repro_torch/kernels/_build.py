@@ -24,6 +24,8 @@ _KERNELS = Path(__file__).resolve().parent
 SOURCES = {
     "staleness_agg": _KERNELS / "staleness_agg" / "csrc" / "staleness_agg.cu",
     "trimmed_agg": _KERNELS / "trimmed_agg" / "csrc" / "trimmed_agg.cu",
+    "swa_attention": _KERNELS / "swa_attention" / "csrc" / "swa_attention.cu",
+    "wkv6": _KERNELS / "wkv6" / "csrc" / "wkv6.cu",
 }
 
 _loaded: dict = {}

@@ -5,7 +5,7 @@ cannot reproduce, so a parity run hands the reference's weights to
 ``Substrate.build(cfg, flat_params0=...)`` instead.  Both packages lay a
 parameter dict out flat in sorted-key leaf order (the order
 ``jax.tree.flatten`` gives a dict), so the flat vectors agree element for
-element.
+element.  The model zoo's trees carry across whole (``from_jax_tree``).
 """
 from __future__ import annotations
 
@@ -33,3 +33,22 @@ def from_flat(flat_params0: np.ndarray) -> np.ndarray:
     if not np.isfinite(flat).all():
         raise ValueError("flat_params0 has non-finite values")
     return flat.copy()
+
+
+def _leaf(arr) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":    # numpy has no bf16: carry the bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def from_jax_tree(params):
+    """The reference model zoo's parameter tree (nested dicts and lists of
+    arrays, e.g. ``repro.models.init_params`` mapped through
+    ``np.asarray``) as the port's tree of CPU tensors: the same key paths,
+    shapes and dtypes, the ``stack`` axis kept."""
+    if isinstance(params, dict):
+        return {k: from_jax_tree(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [from_jax_tree(v) for v in params]
+    return _leaf(params)

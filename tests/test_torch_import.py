@@ -49,7 +49,11 @@ def test_no_source_mentions_jax_or_reference_imports():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
     for name in ("kernels.staleness_agg.ops", "kernels.trimmed_agg.ops",
-                 "faults.attacks", "faults.plan", "robust.aggregators"):
+                 "faults.attacks", "faults.plan", "robust.aggregators",
+                 "kernels.swa_attention.ops", "kernels.wkv6.ops",
+                 "models.transformer", "models.attention", "models.rwkv6",
+                 "configs.internlm2_1_8b", "configs.rwkv6_1_6b",
+                 "launch.serve", "serve_model"):
         assert f"repro_torch.{name}" in names
 
 
@@ -115,3 +119,50 @@ def test_slice_configs_are_accepted():
               selector_params=(("holdoff", 3),), model_params=(("hidden", 64),))
     with pytest.raises(ValueError, match="unknown knob"):
         SimConfig(selector="priority", selector_params=(("hold", 3),))
+
+
+@pytest.mark.parametrize("override,part", [
+    (dict(block_pattern=("mamba",)), "mixer 'mamba'"),
+    (dict(attn_type="mla"), "attention 'mla'"),
+    (dict(moe=True, n_experts=4, top_k=2, moe_d_ff=64), "ffn 'moe'"),
+    (dict(frontend="vision"), "frontend 'vision'"),
+])
+def test_unported_model_parts_name_their_roadmap_item(override, part):
+    """The model zoo's mixers, ffns and frontend that are not ported raise
+    where a model is made, run or served."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import forward, init_decode_state, init_params
+    cfg = dataclasses.replace(get_reduced("internlm2-1.8b"), **override)
+    pat = rf"{part} is not ported .*ROADMAP\.md queue 1 item 13\)"
+    with pytest.raises(NotImplementedError, match=pat):
+        init_params(cfg, torch.Generator())
+    with pytest.raises(NotImplementedError, match=pat):
+        forward(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    with pytest.raises(NotImplementedError, match=pat):
+        init_decode_state(cfg, 1, 8, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "deepseek-v2-lite-16b",
+                                  "jamba-v0.1-52b", "musicgen-medium"])
+def test_unported_architectures_name_their_roadmap_item(arch):
+    from repro_torch.configs import get_config, get_reduced
+    for get in (get_config, get_reduced):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md queue 1 item 13\)"):
+            get(arch)
+
+
+def test_serve_path_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
+    """The serve entry points default to the GPU and raise without one."""
+    from repro_torch import serve_model
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_decode_state
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced("rwkv6-1.6b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_decode_state(cfg, 1, 8)
+    monkeypatch.setattr(sys, "argv", ["serve_model", "--arch", "rwkv6-1.6b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_model.main()
+    assert init_decode_state(cfg, 1, 8, "cpu")["stack"]["sub0"]["wkv"].device.type == "cpu"
