@@ -15,11 +15,13 @@ From the repository root, with nothing built beforehand.  It
      valid counts, +inf exclusion rows, D off the 2048 block, ties, even
      and odd medians, degenerate cells); after step 4 it does the same at every
      participant count n the paths ran a kernel at; holds the sliding-window
-     attention kernel (fp32 and bf16, GQA groups 1-8, head dims 64 and 128,
-     windows 128, 384 and 8192, S below, at and past the window) and the
-     WKV6 kernel (head sizes 8-64, S of 1, 200 and 4096, with and without an
-     initial state, a state carried across calls) against their plain
-     versions, each also at the serve path's shape;
+     attention kernels (bf16 on the tensor-core kernel, fp32 on the CUDA-core
+     one, each counted; GQA groups 1-8, head dims 64 and 128, windows 128,
+     384 and 8192, S at the query- and key-tile edges and below, at and past
+     the window, both layouts) and the WKV6 kernel (head sizes 8-64, S of 1,
+     31, 33, 200 and 4096, with and without an initial state, a state
+     carried across calls) against their plain versions, each also at the
+     serve path's shape;
   4. drives the port's paths at full width, each with the launch counters
      zeroed just before it and read just after: at the quickstart's scale
      the fused pipeline's Random and RELAY campaigns
@@ -37,7 +39,8 @@ From the repository root, with nothing built beforehand.  It
      its path, and no other kernel may launch; then each campaign is timed
      warm (rounds/s) and profiled (device busy share, host spans, top GPU
      kernels); then the model zoo's serve path in bf16: internlm2-1.8b+swa
-     prefill and logits (``swa_attention_bhsd``), rwkv6-1.6b prefill
+     prefill and logits (``swa_attention_bhsd``, every launch on its
+     tensor-core kernel), rwkv6-1.6b prefill
      (``wkv6_bhsn``) and greedy requests of each;
   5. checks the result: finite parameters of the model's width; each flat
      campaign equal to its fused twin bit for bit (records, params and
@@ -50,7 +53,9 @@ From the repository root, with nothing built beforehand.  It
      model than the plain versions' bf16 run), prefill equal to decode after
      a short prompt, and the reduced configs on the GPU equal to the CPU;
   6. times each kernel, its plain version and (where one exists) the one
-     PyTorch call that computes the same function, and prints their bounds.
+     PyTorch call that computes the same function, and prints their bounds
+     (and, for the LM kernels, the achieved TFLOP/s and share of the bound);
+     each build's registers and spills, per kernel, are printed after step 2.
 It exits non-zero, printing no result, on any failure or without a GPU.
 The next-to-last line is the per-kernel JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -58,6 +63,7 @@ The next-to-last line is the per-kernel JSON summary, the last line
 """
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -114,14 +120,19 @@ LM_REPLACES = {SWA: "src/repro/kernels/swa_attention/swa_attention.py:65",
                WKV: "src/repro/kernels/wkv6/wkv6.py:62"}
 # H100 SXM dense bf16 tensor-core rate: attention's bound
 PEAK_BF16_FLOPS = 989e12
+# kernel 8's edge cases: S at and around its 64-row warpgroup and 128-row
+# tile and key-tile edges, and around each window
+SWA_EDGE_S = (1, 63, 64, 65, 127, 129)
 # kernel vs plain version: fp32 as the JAX package holds its Pallas kernels
 # (1e-4 attention, rtol 1e-4 / atol 1e-5 the scan); bf16 outputs compared in
-# fp32 after the cast.  Both attention versions sum in fp32 and round once
-# to bf16 (one ulp is at most 2^-8 of a value), so bf16 attention is held
-# to 4 ulps with an atol under a tenth of the path's typical output (rms
-# ~0.018 over 8192 keys), and to a relative L2 error of SWA_BF16_REL_L2
-# (output rounding alone gives ~1e-3); the scan's bf16 y at the reference's
-# bf16 kernel tolerance, 3e-2
+# fp32 after the cast.  bf16 attention: the plain version sums in fp32; the
+# tensor-core kernel rounds P to bf16 before P V, as a hi and a lo part
+# (p = hi + lo to ~16 bits, each product summed in fp32), and both round
+# the output once to bf16 (one ulp is at most 2^-8 of a value).  So bf16
+# attention is held to 4 ulps with an atol under a tenth of the path's
+# typical output (rms ~0.018 over 8192 keys), and to a relative L2 error of
+# SWA_BF16_REL_L2 (output rounding alone gives ~1e-3); the scan's bf16 y at
+# the reference's bf16 kernel tolerance, 3e-2
 LM_TOL = {(SWA, "fp32"): (1e-4, 1e-4), (SWA, "bf16"): (1.6e-2, 1e-3),
           (WKV, "fp32"): (1e-4, 1e-5), (WKV, "bf16"): (3e-2, 3e-2)}
 SWA_BF16_REL_L2 = 5e-3
@@ -168,6 +179,34 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+def ptxas_summary(log: str) -> list:
+    """Per kernel of one ``nvcc -Xptxas -v`` log: its (demangled) name,
+    registers and spill bytes."""
+    mangled, out = [], []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled.append(m.group(1))
+            out.append({"kernel": m.group(1)})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and out:
+            out[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(mangled), capture_output=True,
+                               text=True, timeout=60, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = mangled
+    for k, name in zip(out, names):
+        k["kernel"] = re.sub(r"\(anonymous namespace\)::|\(.*", "", name)
+        k.setdefault("spill_stores", 0)
+        k.setdefault("spill_loads", 0)
+        k.setdefault("registers", None)
+    return out
 
 
 def saa_inputs(torch, s, n, d, case, gen):
@@ -380,6 +419,23 @@ def graph_ms(torch, fn, replays=20) -> float:
     return time_ms(torch, graph.replay, replays, warmup=2)
 
 
+def kernel_ms(torch, fn, name, calls=200) -> float:
+    """Mean device time of the GPU kernel whose name contains ``name`` over
+    ``calls`` calls of ``fn``, from a profiler trace: for a kernel of a few
+    microseconds, a graph replay's time is mostly the replay's own cost."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name in e.key and e.count]
+    if len(hits) != 1:
+        fail(f"profiler: expected one {name} kernel, got {[e.key[:60] for e in hits]}")
+    return hits[0].device_time_total / hits[0].count / 1e3
+
+
 def saa_cost(kernel, s, n, d, n_fresh):
     """(bytes, flops) a kernel's function needs: each input read once, each
     output written once; flops of the deviation pass (mixed, difference,
@@ -536,11 +592,17 @@ def check_swa(torch, ops, ref, checks, b, s, h, hkv, dh, window, dtype, gen,
     operands; ``bhsd`` also runs the TPU layout's entry, which must give the
     same bits (one kernel, other strides).  Returns (max abs error,
     relative L2 error)."""
+    from repro_torch.kernels import LAUNCHES
     q, k, v = swa_inputs(torch, b, s, h, hkv, dh, dtype, gen)
+    before = Counter(LAUNCHES)
     got = ops.swa_attention(q, k, v, window=window)
     want = ref.swa_attention_ref(q, k, v, window=window)
     torch.cuda.synchronize()
     label = dtype_label(torch, dtype)
+    took = {SWA: 1, ops.KERNELS[dtype]: 1}      # bf16: wgmma; fp32: CUDA cores
+    if Counter(LAUNCHES) - before != Counter(took):
+        fail(f"{SWA}: launches {dict(Counter(LAUNCHES) - before)} for {label} operands, "
+             f"expected {took}")
     what = f"B={b} S={s} H={h} Hkv={hkv} Dh={dh} window={window} {label}"
     checks.close(SWA, got, want, what, tol=LM_TOL[(SWA, label)])
     err, rel = (got.float() - want.float()).abs().max().item(), rel_l2(torch, got, want)
@@ -602,13 +664,14 @@ def check_lm_kernels(torch, checks, gen):
         swa[key] = {"max_abs": max(old["max_abs"], err_rel[0]),
                     "rel_l2": max(old["rel_l2"], err_rel[1])}
     for window in (128, 384):     # S below, at and past the window, off the tile
-        for s in (window - 37, window, window + 200, 3 * window + 5):
+        for s in sorted({*SWA_EDGE_S, window - 37, window - 1, window, window + 1,
+                         window + 200, 3 * window + 5}):
             for g in (1, 2, 4, 8):
                 for dh in (64, 128):
                     for dt in dtypes:
                         note("grid", dt, check_swa(
                             torch, swa_ops, swa_ref, checks, 2, s, 8, 8 // g, dh,
-                            window, dt, gen, bhsd=g == 2))
+                            window, dt, gen, bhsd=True))
     for s in (8000, 8192, 9000):  # the path's window: 8192 live keys a query
         for dt in dtypes:
             note("grid", dt, check_swa(torch, swa_ops, swa_ref, checks, 1, s, 4, 2,
@@ -616,8 +679,8 @@ def check_lm_kernels(torch, checks, gen):
     for dt in dtypes:
         note("path", dt, check_swa(torch, swa_ops, swa_ref, checks, SWA_PATH["B"],
                                    SWA_PATH["S"], 16, 8, 128, 8192, dt, gen))
-    for n in (8, 16, 32, 64):
-        for s in (1, 200, 4096):
+    for n in (8, 16, 32, 64):     # S around the 16-step chunk, and long
+        for s in (1, 31, 33, 200, 4096):
             for with_s0 in (True, False):
                 check_wkv(torch, wkv_ops, wkv_ref, checks, 2, s, 4, n,
                           torch.float32, with_s0, gen)
@@ -661,6 +724,7 @@ def serve_paths(torch) -> dict:
     import dataclasses
     from repro_torch.configs import adapt_for_shape, get_config, get_reduced, shape_for
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.swa_attention.ops import KERNELS
     from repro_torch.launch.serve import make_decode_step, make_logits_fn, make_prefill_step
     from repro_torch.models import decode_step, init_decode_state, init_params, prefill
     from repro_torch.models.transformer import tree_map
@@ -802,9 +866,10 @@ def serve_paths(torch) -> dict:
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                                      device="cuda", dtype=torch.int32)}
     pre = make_prefill_step(cfg)
-    (lp, states), _ = step(f"{cfg.arch_id} prefill", lambda: pre(params, batch), {SWA: 24})
-    _, t_pre = step(f"{cfg.arch_id} prefill (warm)", lambda: pre(params, batch),
-                    {SWA: 24}, record=False)
+    swa_24 = {SWA: 24, KERNELS[torch.bfloat16]: 24}     # all on the tensor-core kernel
+    (lp, states), _ = step(f"{cfg.arch_id} prefill", lambda: pre(params, batch), swa_24)
+    _, t_pre = step(f"{cfg.arch_id} prefill (warm)", lambda: pre(params, batch), swa_24,
+                    record=False)
     finite("internlm2 prefill", lp)
     print(f"{cfg.arch_id} prefill: {b * s / t_pre:.0f} tokens/s (warm)")
     prof_pre = profile(f"{cfg.arch_id} prefill", lambda: pre(params, batch))
@@ -813,7 +878,7 @@ def serve_paths(torch) -> dict:
         fail(f"internlm2 prefill: shapes {tuple(lp.shape)}")
     del states
     la, _ = step(f"{cfg.arch_id} logits", lambda: make_logits_fn(cfg)(params, batch),
-                 {SWA: 24})
+                 swa_24)
     finite("internlm2 logits", la)
     rel_last = rel_l2(torch, lp, la[:, -1:])
     if rel_last > LOGIT_REL_L2:
@@ -960,16 +1025,21 @@ def time_lm_kernels(torch, gen) -> dict:
     nbytes, flops = wkv_cost(REQUESTS["B"], 1, h, n, 2, True)
     res[WKV]["decode_step"] = {"B": REQUESTS["B"], "ms": time_ms(torch, step, 200),
                                "device_ms": graph_ms(torch, step),
+                               "kernel_ms": kernel_ms(torch, step, "wkv6_kernel"),
                                "bound_ms": max(nbytes / PEAK_BYTES_PER_S,
                                                flops / PEAK_FP32_FLOPS) * 1e3}
     for kname, t in res.items():
+        # achieved rate and share of the bound, from the device time
+        t["tflop_s"] = t["flops"] / t["device_ms"] / 1e9
+        t["bound_share"] = t["bound_ms"] / t["device_ms"]
         lib = "" if t["library_ms"] is None else f", library {t['library_ms']:.4f} ms"
         print(f"{kname} {t['shape']}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}), "
               f"plain {t['plain_ms']:.4f} ms{lib}, bound {t['bound_ms']:.6f} ms "
-              f"({t['bound_by']})")
+              f"({t['bound_by']}); {t['tflop_s']:.1f} TFLOP/s, {t['bound_share']:.3f} of "
+              f"the bound")
     d = res[WKV]["decode_step"]
-    print(f"{WKV} decode step B={d['B']}: {d['ms']:.4f} ms (device {d['device_ms']:.4f}), "
-          f"bound {d['bound_ms']:.6f} ms")
+    print(f"{WKV} decode step B={d['B']}: {d['ms']:.4f} ms (device {d['device_ms']:.4f}; "
+          f"the kernel alone {d['kernel_ms']:.5f}), bound {d['bound_ms']:.6f} ms")
     return res
 
 
@@ -1065,10 +1135,12 @@ def main():
     report["build_s"] = time.perf_counter() - t0
     print(f"built {sorted(_build.SOURCES)} in {report['build_s']:.1f}s")
     lap("build")
-    for name in _build.SOURCES:
-        for line in _build.log_path(name).read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    report["ptxas"] = {name: ptxas_summary(_build.log_path(name).read_text())
+                       for name in _build.SOURCES}
+    for name, kerns in report["ptxas"].items():
+        for k in kerns:
+            print(f"  ptxas {name}: {k['kernel']}: {k['registers']} registers, spill "
+                  f"stores {k['spill_stores']} / loads {k['spill_loads']} bytes")
 
     # --- 2. each kernel against its plain version -----------------------
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -10,3 +10,10 @@ reads it after, to show the path went through every kernel.
 from collections import Counter
 
 LAUNCHES: Counter = Counter()
+
+
+def contiguous16(t):
+    """``t`` contiguous and starting on a 16-byte boundary (copied if not),
+    as the kernels' 16-byte copies (TMA, ``cp.async``) need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -2,10 +2,12 @@
 ``repro.kernels.swa_attention.ops`` and ``.swa_attention`` are:
 ``swa_attention`` takes the model's (B, S, H, Dh) layout (the GQA
 transformer's prefill calls it), ``swa_attention_bhsd`` the TPU kernel's
-(B*H, S, Dh).  Both launch the same CUDA kernel (``csrc/swa_attention.cu``),
-which reads either layout in place through strides, takes any S (it masks
-keys past S itself, so nothing is padded), and counts every launch in
-``LAUNCHES["swa_attention_bhsd"]``.
+(B*H, S, Dh).  Both launch the same CUDA source (``csrc/swa_attention.cu``):
+bf16 operands take its tensor-core kernel (wgmma, TMA), fp32 operands its
+CUDA-core kernel.  Either reads both layouts in place through strides and
+takes any S (it masks keys past S itself, so nothing is padded).  Every
+launch counts in ``LAUNCHES["swa_attention_bhsd"]`` and in the count of the
+kernel it took (``KERNELS``).
 
 The window must be a multiple of the TPU kernel's 128 tile, as the reference
 requires.  The plain version (``ref``) runs when every tensor lies on the
@@ -18,13 +20,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, contiguous16
 from repro_torch.kernels.swa_attention import ref
 
 NAME = "swa_attention_bhsd"
 BLK = 128                 # the TPU kernel's tile; the window is a multiple of it
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# operand dtype -> the launch count of the kernel that dtype takes
+KERNELS = {torch.bfloat16: f"{NAME}:wgmma", torch.float32: f"{NAME}:cuda_cores"}
 _fn = []
 
 
@@ -69,6 +73,7 @@ def _launch(q, k, v, out, B, S, H, Hkv, window, q_str, kv_str, o_str):
     if err:
         raise RuntimeError(f"{NAME}: CUDA launch failed with error {err}")
     LAUNCHES[NAME] += 1
+    LAUNCHES[KERNELS[q.dtype]] += 1
     return out
 
 
@@ -82,7 +87,7 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
     if _check(q, k, v, window, "swa_attention").type == "cpu":
         return ref.swa_attention_ref(q, k, v, window=window)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (contiguous16(t) for t in (q, k, v))   # TMA reads 16-byte aligned rows
     B, S, H, Dh = q.shape
     Hkv = k.shape[2]
     out = torch.empty_like(q)
@@ -109,7 +114,7 @@ def swa_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = ref.swa_attention_ref(model(q, H), model(k, n_kv_heads),
                                     model(v, n_kv_heads), window=window)
         return out.transpose(1, 2).reshape(BH, S, Dh)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (contiguous16(t) for t in (q, k, v))   # TMA reads 16-byte aligned rows
     out = torch.empty_like(q)
     # (B*H, S, Dh) read as (batch, sequence, head) with head stride S*Dh
     return _launch(q, k, v, out, B, S, H, n_kv_heads, window,

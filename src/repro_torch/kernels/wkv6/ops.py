@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, contiguous16
 from repro_torch.kernels.wkv6 import ref
 
 NAME = "wkv6_bhsn"
@@ -67,7 +67,8 @@ def _launch(r, k, v, w, u, s0, B, H, S, N, lay, u_str):
     """One launch over (B, H) heads of S steps; ``lay`` are the element
     strides of (batch, step, head) of r, k, v, w and y, ``u_str`` of
     (batch, head) of u.  Returns (y, final state (B*H, N, N))."""
-    r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
+    r, k, v, w = (contiguous16(t) for t in (r, k, v, w))   # read by 16-byte cp.async
+    u = u.contiguous()
     s0 = None if s0 is None else s0.contiguous()
     y = torch.empty_like(v)
     s_out = torch.empty((B * H, N, N), dtype=torch.float32, device=r.device)

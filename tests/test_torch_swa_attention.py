@@ -1,7 +1,8 @@
 """The sliding-window attention kernel's wrappers and plain version
 (``repro_torch.kernels.swa_attention``) against the JAX Pallas kernel
 ``swa_attention`` in interpret mode, on ``tests/test_kernels.py``'s shapes
-(GQA groups 1, 2 and 4; S off the 128 tile; windows of 1 and 3 tiles) in
+(GQA groups 1, 2 and 4; S off the 128 tile; windows of 1 and 3 tiles) and
+the CUDA kernels' tile edges (S = 63, 65, 129; G = 8) in
 fp32 and bf16, the window's exact reach, the TPU kernel layout
 (``swa_attention_bhsd``), and the wrappers' checks.
 
@@ -25,7 +26,11 @@ torch.set_num_threads(1)
 SHAPES = [(1, 256, 2, 1, 64, 128),
           (2, 384, 4, 2, 64, 256),
           (1, 200, 2, 2, 128, 128),   # S off the 128 tile
-          (1, 512, 8, 2, 64, 384)]
+          (1, 512, 8, 2, 64, 384),
+          # the GPU kernels' edges: a 64-row warpgroup, a 128-row tile; G = 8
+          (1, 63, 2, 1, 128, 128),
+          (2, 65, 4, 2, 64, 128),
+          (1, 129, 8, 1, 64, 128)]
 DTYPES = {"fp32": (jnp.float32, torch.float32, 1e-4),
           "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 
@@ -128,7 +133,8 @@ def test_wrapper_never_falls_back_off_the_cpu():
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
-    """On the card: the CUDA kernel == the plain version, both layouts."""
+    """On the card: the CUDA kernel == the plain version, both layouts;
+    bf16 takes the tensor-core kernel, fp32 the CUDA-core one."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -136,9 +142,10 @@ def test_cuda_kernel_matches_plain_version():
         for _, tdt, tol in DTYPES.values():
             q, k, v = (torch.from_numpy(a).to("cuda", tdt)
                        for a in _operands(B, S, H, Hkv, Dh, 7))
-            before = LAUNCHES[ops.NAME]
+            before = LAUNCHES[ops.NAME], LAUNCHES[ops.KERNELS[tdt]]
             got = ops.swa_attention(q, k, v, window=W)
             torch.cuda.synchronize()
-            assert LAUNCHES[ops.NAME] == before + 1
+            assert (LAUNCHES[ops.NAME], LAUNCHES[ops.KERNELS[tdt]]) == \
+                (before[0] + 1, before[1] + 1)
             torch.testing.assert_close(got.float(), ref.swa_attention_ref(
                 q, k, v, window=W).float(), rtol=tol, atol=tol)

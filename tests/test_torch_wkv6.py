@@ -1,9 +1,10 @@
 """The WKV6 kernel's wrappers and plain version (``repro_torch.kernels.
 wkv6``) against the JAX Pallas kernel ``wkv6`` in interpret mode, on
 ``tests/test_kernels.py``'s shapes (head sizes 8 to 64, S off the 128
-chunk) with an initial state, a state carried from one call into the next,
-S = 1 (a decode step), bf16 r / k / v, the TPU kernel layout
-(``wkv6_bhsn``), and the wrappers' checks.
+chunk) and around the CUDA kernel's 32-step chunk (S = 31, 33), with an
+initial state, a state carried from one call into the next, S = 1 (a
+decode step), bf16 r / k / v, the TPU kernel layout (``wkv6_bhsn``), and
+the wrappers' checks.
 
 Tolerance rtol 1e-4 / atol 1e-5: the two sum the fp32 recurrence in other
 orders (the reference's own tolerance for its kernel against its scan).
@@ -22,7 +23,8 @@ from repro_torch.kernels.wkv6 import ops, ref
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
-SHAPES = [(2, 128, 2, 16), (1, 200, 3, 32), (2, 256, 1, 64), (1, 384, 4, 8)]
+SHAPES = [(2, 128, 2, 16), (1, 200, 3, 32), (2, 256, 1, 64), (1, 384, 4, 8),
+          (2, 31, 2, 64), (1, 33, 3, 8)]     # around the CUDA kernel's 32-step chunk
 
 
 def _operands(B, S, H, N, seed):
