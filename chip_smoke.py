@@ -10,7 +10,10 @@ From the repository root, with nothing built beforehand.  It
      on the card (the round pipeline's shapes, a large shape, every scaling
      rule, padding, no-stale, no-fresh and all-invalid cells; the params
      update in place), and holds the apply kernels bit for bit to the
-     aggregate kernels followed by torch's ``params + lr * agg``; holds the
+     aggregate kernels followed by torch's ``params + lr * agg``, and the
+     one-launch cluster kernel of kernels 1-4 bit for bit to their
+     three-launch chain (U in shared memory, U read from L2, one to three
+     chunks a block); holds the
      trimmed-mean kernel against its plain version (mixed trim depths and
      valid counts, +inf exclusion rows, D off the 2048 block, ties, even
      and odd medians, degenerate cells); after step 4 it does the same at every
@@ -36,7 +39,8 @@ From the repository root, with nothing built beforehand.  It
      attacked saa, multi_krum and norm_median_clip launch no kernel, and
      coord_median and trimmed_mean launch ``sweep_trimmed_aggregate``.
      Every kernel must launch exactly once per round that aggregated on
-     its path, and no other kernel may launch; then each campaign is timed
+     its path (kernels 1-4 each time on the cluster kernel), and no other
+     kernel may launch; then each campaign is timed
      warm (rounds/s) and profiled (device busy share, host spans, top GPU
      kernels); then the model zoo's serve path in bf16: internlm2-1.8b+swa
      prefill and logits (``swa_attention_bhsd``, every launch on its
@@ -55,12 +59,17 @@ From the repository root, with nothing built beforehand.  It
   6. times each kernel, its plain version and (where one exists) the one
      PyTorch call that computes the same function, and prints their bounds
      (and, for the LM kernels, the achieved TFLOP/s and share of the bound);
+     for kernels 1-4 also the profiler's device time of their kernels, the
+     launch floor (one empty block), both variants of the server step from
+     the main shape to the large one, and the cluster kernel's phases (a
+     copy built with its device-clock stamps);
      each build's registers and spills, per kernel, are printed after step 2.
 It exits non-zero, printing no result, on any failure or without a GPU.
 The next-to-last line is the per-kernel JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
+import ctypes
 import dataclasses
 import json
 import re
@@ -100,7 +109,23 @@ SAA_REPLACES = {
     "weighted_aggregate": f"{PALLAS}:490",
 }
 APPLY, AGG, CELL_AGG, CELL_APPLY, PARTIALS, WAGG = SAA_REPLACES
+FUSED = (APPLY, AGG, CELL_AGG, CELL_APPLY)   # the cluster kernel or the chain
+# each kernel's GPU kernels, by name, for the profiler's device time:
+# kernels 1-4 by variant, then kernels 5-7
+VARIANT_KERNELS = {"cluster": ("saa_cluster(",),
+                   "chain": ("saa_partials(", "saa_weights(", "saa_apply(")}
+# the cluster kernel is held bitwise to the chain wherever it is cheap to
+# force (up to this many 2048-column chunks; past it, it streams U on 8 SMs)
+CLUSTER_CHECK_CHUNKS = 64
+# the two variants' times: the main shape, n past which U no longer fits in
+# shared memory, the large shape, and D around the threshold at n = 10
+VARIANT_SHAPES = {"main n=10": (1, 10, MAIN_D), "n=16": (1, 16, MAIN_D),
+                  "n=30 (U from L2)": (1, 30, MAIN_D), "large": LARGE,
+                  **{f"n=10 {c} chunks": (1, 10, c * 2048)
+                     for c in (8, 9, 12, 16, 17, 20, 24, 32, 64)}}
 TRIM = "sweep_trimmed_aggregate"
+KERNEL_NAMES = {PARTIALS: ("saa_partials(", "saa_partials_sum("),
+                WAGG: ("saa_apply(",), TRIM: ("trimmed_band_mean(",)}
 REPLACES = {**SAA_REPLACES,
             TRIM: "src/repro/kernels/trimmed_agg/trimmed_agg.py:61"}
 TRIM_D = (2048, 2 * 2048 + 37, 12835)   # the TPU block, off it, the model
@@ -244,6 +269,7 @@ class Checks:
         self.n = Counter()
         self.err = Counter()
         self.rel = Counter()
+        self.same = Counter()     # cluster == chain checks, by default variant
 
     def close(self, kernel, got, want, what, weights=False, tol=None):
         """``weights``: hold to the weights' (and the trimmed mean's)
@@ -265,6 +291,26 @@ class Checks:
     def count(self, *kernels):
         for k in kernels:
             self.n[k] += 1
+
+
+def variant_outputs(ops, params, u, fresh, tau, valid, scal, rule, v):
+    """Kernels 1-4 by variant ``v`` on one set of operands (the one-cell
+    kernels on the last cell): {output: tensor}."""
+    beta = scal[:, 0].contiguous()
+    c = u.shape[0] - 1
+    b, l = float(scal[c, 0]), float(scal[c, 1])
+    p1, p4 = params.clone(), params[c].clone()
+    _, w1 = ops.sweep_fused_staleness_apply(p1, u, fresh, tau, valid, scal,
+                                            rule=rule, variant=v)
+    a2, w2 = ops.sweep_fused_staleness_aggregate(u, fresh, tau, beta, valid,
+                                                 rule=rule, variant=v)
+    a3, w3 = ops.fused_staleness_aggregate(u[c], fresh[c], tau[c], b, rule=rule,
+                                           valid=valid[c], variant=v)
+    _, w4 = ops.fused_staleness_apply(p4, u[c], fresh[c], tau[c], b, l,
+                                      rule=rule, valid=valid[c], variant=v)
+    return {"apply weights": w1, "apply params": p1, "aggregate weights": w2,
+            "aggregate": a2, "cell aggregate weights": w3, "cell aggregate": a3,
+            "cell apply weights": w4, "cell apply params": p4}
 
 
 def check_family(torch, ops, ref, checks, s, n, d, rule, case, gen,
@@ -325,6 +371,15 @@ def check_family(torch, ops, ref, checks, s, n, d, rule, case, gen,
     if not (torch.equal(w4, w3) and torch.equal(p4, params[c] + l * a3)):
         fail(f"one-cell apply != params + lr * aggregate, bitwise, at {what}")
     checks.count(APPLY, AGG, CELL_AGG, CELL_APPLY)
+    # the cluster kernel == the three-launch chain, bitwise
+    if d // ops.D_BLK <= CLUSTER_CHECK_CHUNKS:
+        by = {v: variant_outputs(ops, params, u, fresh, tau, valid, scal, rule, v)
+              for v in ops.VARIANTS}
+        torch.cuda.synchronize()
+        for out, got in by["cluster"].items():
+            if not torch.equal(got, by["chain"][out]):
+                fail(f"cluster kernel != chain, bitwise, in its {out} at {what}")
+        checks.same[ops.variant(s, n, d)] += 1
     if not rule_free:
         return
     # 5 and 6: no scaling rule; the partials and a GEMV on given weights
@@ -419,9 +474,11 @@ def graph_ms(torch, fn, replays=20) -> float:
     return time_ms(torch, graph.replay, replays, warmup=2)
 
 
-def kernel_ms(torch, fn, name, calls=200) -> float:
-    """Mean device time of the GPU kernel whose name contains ``name`` over
-    ``calls`` calls of ``fn``, from a profiler trace: for a kernel of a few
+def kernel_ms(torch, fn, names, calls=200) -> float:
+    """Device time of one call of ``fn``, summed over its GPU kernels (each
+    name in ``names`` must match one kernel, launched once a call): each
+    kernel's mean over its launches in a profiler trace of ``calls`` calls
+    (the trace may drop a few records): for a kernel of a few
     microseconds, a graph replay's time is mostly the replay's own cost."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -430,10 +487,100 @@ def kernel_ms(torch, fn, name, calls=200) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if name in e.key and e.count]
-    if len(hits) != 1:
-        fail(f"profiler: expected one {name} kernel, got {[e.key[:60] for e in hits]}")
-    return hits[0].device_time_total / hits[0].count / 1e3
+    total = 0.0
+    for name in names:
+        hits = [e for e in prof.key_averages() if name in e.key and e.count]
+        if len(hits) != 1 or hits[0].count > calls:
+            fail(f"profiler: expected one {name} kernel launched at most {calls} "
+                 f"times, got {[(e.key[:60], e.count) for e in hits]}")
+        total += hits[0].device_time_total / hits[0].count
+    return total / 1e3
+
+
+def launch_floor(torch, lib) -> dict:
+    """One launch of one empty block (``saa_empty``) through the same ctypes
+    route as the kernels: events, graph replay and profiler — the least a
+    one-launch kernel can take."""
+    fn = lib.saa_empty
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    call = lambda: fn(torch.cuda.current_stream().cuda_stream)
+    if call():
+        fail("saa_empty did not launch")
+    return {"ms": time_ms(torch, call, 500), "device_ms": graph_ms(torch, call),
+            "kernel_ms": kernel_ms(torch, call, ("saa_empty_kernel(",))}
+
+
+# saa_cluster's phases, between its stamps 0..8 (csrc/staleness_agg.cu)
+PHASES = ("U staged", "fresh count", "partials", "cluster barrier",
+          "partials gathered", "weights", "apply", "exit barrier")
+
+
+def cluster_phases(torch, gen, shapes, calls=50) -> dict:
+    """Where ``saa_cluster``'s time goes at each (n, D) (S = 1, the apply):
+    a copy of the library built with ``-DSAA_PHASE_STAMPS`` records the
+    device clock at each phase boundary.  Per phase, the median over
+    ``calls`` calls of the time from the last block reaching its start to
+    the last block reaching its end; ``total`` from the first block's entry
+    to the last block's exit."""
+    from repro_torch.kernels import _build
+    out = OUT.parent / "libstaleness_agg_stamped.so"
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DSAA_PHASE_STAMPS",
+                    "-o", str(out), str(_build.SOURCES["staleness_agg"])],
+                   check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    fn = lib.saa_cluster_fused_apply
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stamps = (ctypes.c_ulonglong * (8 * (len(PHASES) + 1)))()
+    res = {}
+    for n, d in shapes:
+        params, u, fresh, tau, valid, scal = saa_inputs(torch, 1, n, d, "mixed", gen)
+        w = torch.empty((1, n), device="cuda")
+        nch = d // 2048
+        per = -(-nch // 8)
+        blocks = -(-nch // per)
+        runs = []
+        for _ in range(calls):
+            if fn(params.data_ptr(), u.data_ptr(), fresh.data_ptr(), tau.data_ptr(),
+                  valid.data_ptr(), scal.data_ptr(), w.data_ptr(), 1, n, d, 3,
+                  torch.cuda.current_stream().cuda_stream):
+                fail("the stamped saa_cluster did not launch")
+            torch.cuda.synchronize()
+            if lib.saa_phase_stamps(stamps):
+                fail("could not read saa_cluster's stamps")
+            rows = [stamps[b * (len(PHASES) + 1):(b + 1) * (len(PHASES) + 1)]
+                    for b in range(blocks)]
+            reach = [max(r[k] for r in rows) for k in range(len(PHASES) + 1)]
+            runs.append([(reach[k + 1] - reach[k]) / 1e6 for k in range(len(PHASES))]
+                        + [(reach[-1] - min(r[0] for r in rows)) / 1e6])
+        med = lambda xs: sorted(xs)[len(xs) // 2]
+        res[f"n={n} D={d}"] = {**{ph: med([r[k] for r in runs])
+                                  for k, ph in enumerate(PHASES)},
+                               "total": med([r[-1] for r in runs])}
+    return res
+
+
+def time_variants(torch, ops, s, n, d, calls, gen) -> dict:
+    """Kernel 1 (``sweep_fused_staleness_apply``) by each variant at (S, n,
+    D): events (cluster, chain, chain, cluster), CUDA-graph device time
+    and the profiler's device time summed over the variant's kernels.  A
+    call of the cluster kernel at the large shape runs for long: there
+    ``calls`` is small and events alone time it (a trace of a few calls
+    may keep no record of them)."""
+    params, u, fresh, tau, valid, scal = saa_inputs(torch, s, n, d, "mixed", gen)
+    fns = {v: (lambda v=v: ops.sweep_fused_staleness_apply(
+        params, u, fresh, tau, valid, scal, variant=v)) for v in ops.VARIANTS}
+    warm = 1 if calls < 10 else 5
+    ev = {v: [] for v in ops.VARIANTS}
+    for v in ("cluster", "chain", "chain", "cluster"):
+        ev[v].append(time_ms(torch, fns[v], calls, warmup=warm))
+    long = calls < 10
+    return {v: {"ms": min(ev[v]), "ms_runs": ev[v],
+                "device_ms": None if long else graph_ms(torch, fns[v]),
+                "kernel_ms": None if long else kernel_ms(torch, fns[v],
+                                                         VARIANT_KERNELS[v])}
+            for v in ops.VARIANTS}
 
 
 def saa_cost(kernel, s, n, d, n_fresh):
@@ -508,6 +655,10 @@ def time_kernel(torch, ops, ref, kernel, s, n, d, iters, gen) -> dict:
            "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None, "library_device_ms": None}
+    if kernel in FUSED:
+        res["variant"] = ops.variant(1 if single else s, n, d)
+    res["kernel_ms"] = kernel_ms(torch, k, VARIANT_KERNELS[res["variant"]]
+                                 if kernel in FUSED else KERNEL_NAMES[kernel])
     if lib is not None:
         res["library_ms"] = min(time_ms(torch, lib, iters), time_ms(torch, lib, iters))
         res["library_device_ms"] = graph_ms(torch, lib)
@@ -532,6 +683,7 @@ def time_trimmed(torch, ops, ref, n, d, iters, gen) -> dict:
     return {"shape": {"n": n, "D": d}, "ms": min(k1, k2), "ms_runs": [k1, k2],
             "plain_ms": min(pr1, pr2), "plain_ms_runs": [pr1, pr2],
             "device_ms": graph_ms(torch, kern),
+            "kernel_ms": kernel_ms(torch, kern, KERNEL_NAMES[TRIM]),
             "plain_device_ms": graph_ms(torch, plain), "bytes": nbytes,
             "lane_ops": lane_ops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1025,7 +1177,7 @@ def time_lm_kernels(torch, gen) -> dict:
     nbytes, flops = wkv_cost(REQUESTS["B"], 1, h, n, 2, True)
     res[WKV]["decode_step"] = {"B": REQUESTS["B"], "ms": time_ms(torch, step, 200),
                                "device_ms": graph_ms(torch, step),
-                               "kernel_ms": kernel_ms(torch, step, "wkv6_kernel"),
+                               "kernel_ms": kernel_ms(torch, step, ("wkv6_kernel",)),
                                "bound_ms": max(nbytes / PEAK_BYTES_PER_S,
                                                flops / PEAK_FP32_FLOPS) * 1e3}
     for kname, t in res.items():
@@ -1154,7 +1306,11 @@ def main():
                 for case in cases:
                     check_family(torch, saa_ops, saa_ref, checks, s, n, d,
                                  rule, case, gen, rule_free=rule == rules[0])
-    grid = [(1, n, MAIN_D) for n in (1, 2, 10, 16)] + [(3, 10, MAIN_D), LARGE]
+    # n = 30: the cluster kernel reads U from L2; 9 chunks: two a block;
+    # 17: three a block, past the threshold (the chain by default)
+    grid = [(1, n, MAIN_D) for n in (1, 2, 10, 16, 30)] + [
+        (3, 10, MAIN_D), (2, 10, 9 * saa_ops.D_BLK), (1, 16, 17 * saa_ops.D_BLK),
+        LARGE]
     check_grid(grid)
 
     def check_trim_grid(ns, ds):
@@ -1170,6 +1326,9 @@ def main():
               f"(max abs err {checks.err[k]:.3g}, relative {checks.rel[k]:.3g})")
     print("apply kernels == aggregate kernels + torch's params + lr * agg, "
           "bitwise, in every check")
+    print(f"cluster kernel == chain, bitwise (weights, aggregates, params of "
+          f"kernels 1-4), in {sum(checks.same.values())} checks "
+          f"({dict(checks.same)} by the variant the shape takes)")
     lap("SAA and trimmed-mean kernel checks")
     report["swa_checks"] = check_lm_kernels(torch, checks, gen)
     lap("LM kernel checks")
@@ -1201,9 +1360,12 @@ def main():
         wall = time.perf_counter() - t0
         got, n_agg = dict(LAUNCHES), aggregated(gpu[name])
         want = {} if kernel is None else {kernel: n_agg}
+        if kernel in FUSED:              # every server step on the cluster kernel
+            want[saa_ops.launch_key(kernel, "cluster")] = n_agg
         if n_agg == 0 or got != want:
             fail(f"{name}: launches {got}, expected {want} (one per round "
-                 "that aggregated, and no other kernel)")
+                 "that aggregated, each on the cluster kernel for kernels 1-4, "
+                 "and no other kernel)")
         launches.update(got)
         summ = gpu[name].summary()
         report["paths"][name] = {
@@ -1251,7 +1413,8 @@ def main():
                  "aggregate, bitwise")
         ab_err = max(ab_err, (agg_ab - agg).abs().max().item())
     got = dict(LAUNCHES)
-    if not rounds or got != {k: len(rounds) for k in (CELL_APPLY, PARTIALS, WAGG)}:
+    if not rounds or got != {k: len(rounds) for k in (
+            CELL_APPLY, saa_ops.launch_key(CELL_APPLY, "cluster"), PARTIALS, WAGG)}:
         fail(f"A/B path: launches {got} over {len(rounds)} rounds")
     launches.update(got)
     report["paths"]["A/B host entries"] = {"launches": got,
@@ -1406,10 +1569,42 @@ def main():
             lib = ("" if t["library_ms"] is None else
                    f", library {t['library_ms']:.4f} ms (device "
                    f"{t['library_device_ms']:.4f})")
+            var = (f" [{t['variant']}]" if "variant" in t else "") + (
+                f", its kernels {t['kernel_ms']:.5f} by the profiler")
             print(f"{kernel} {label} {t['shape']}: kernel {t['ms']:.4f} ms "
-                  f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms "
+                  f"(device {t['device_ms']:.4f}){var}, plain {t['plain_ms']:.4f} ms "
                   f"(device {t['plain_device_ms']:.4f}){lib}, bound "
                   f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    # the fused server step's two variants, beside the launch floor
+    floor = launch_floor(torch, _build.library("staleness_agg"))
+    print(f"launch floor, one empty block: {floor['ms']:.5f} ms events, "
+          f"{floor['device_ms']:.5f} graph replay, {floor['kernel_ms']:.5f} by the "
+          f"profiler; the main shape's bound {times[APPLY]['main']['bound_ms']:.6f} ms")
+    variants = {label: time_variants(torch, saa_ops, *shape,
+                                     1 if shape == LARGE else 200, gen)
+                for label, shape in VARIANT_SHAPES.items()}
+    faster = []                  # chunk counts at n = 10 where the cluster wins
+    for label, by in variants.items():
+        s_, n_, d_ = VARIANT_SHAPES[label]
+        print(f"{APPLY} {label} (S={s_} n={n_} D={d_}, takes "
+              f"{saa_ops.variant(s_, n_, d_)}): " + "; ".join(
+                  f"{v} {t['ms']:.5f} ms events" + (
+                      "" if t["device_ms"] is None else
+                      f", device {t['device_ms']:.5f}, its kernels "
+                      f"{t['kernel_ms']:.5f} (profiler)")
+                  for v, t in by.items()))
+        if n_ == 10 and s_ == 1 and by["cluster"]["device_ms"] <= by["chain"]["device_ms"]:
+            faster.append(d_ // saa_ops.D_BLK)
+    print(f"cluster/chain threshold: the cluster kernel is as fast or faster by "
+          f"device time at n=10 with {sorted(faster)} chunks; the wrapper takes it "
+          f"up to {saa_ops.CLUSTER_MAX_CHUNKS} chunks")
+    phases = cluster_phases(torch, gen, [(10, MAIN_D), (16, MAIN_D), (30, MAIN_D),
+                                         (10, 16 * saa_ops.D_BLK)])
+    for label, ph in phases.items():
+        print(f"saa_cluster phases at {label} (ms, device clock): " + ", ".join(
+            f"{k} {v:.5f}" for k, v in ph.items()))
+    times["launch_floor"], times["variants"] = floor, variants
+    times["cluster_phases"] = phases
     # the flat path's per-round D padding (staleness_aggregate's bucket_pad)
     from repro_torch.core.aggregation import bucket_pad
     n_flat = ns[CELL_AGG].most_common(1)[0][0]
@@ -1427,7 +1622,8 @@ def main():
     lap("kernel times")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in report["phase_s"].items()))
     report.update(times=times, launches=dict(launches),
-                  kernel_checks=dict(checks.n), max_abs_err=dict(checks.err),
+                  kernel_checks=dict(checks.n), cluster_equals_chain=dict(checks.same),
+                  max_abs_err=dict(checks.err),
                   max_rel_err=dict(checks.rel),
                   main_path_n={k: dict(v) for k, v in ns.items()})
     OUT.parent.mkdir(parents=True, exist_ok=True)

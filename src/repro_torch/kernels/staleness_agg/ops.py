@@ -10,6 +10,13 @@ current stream when every tensor lies on one CUDA device, and counts the
 launch in ``LAUNCHES`` under its own name.  Anything else raises: a CUDA
 tensor never falls back to the plain version.
 
+The four fused server-step wrappers (``FUSED``) run one of two variants of
+one function, equal bit for bit: the one-launch thread-block-cluster
+kernel, or the chain of three launches.  ``variant(s, n, d)`` picks by
+shape (the cluster up to ``CLUSTER_MAX_CHUNKS`` 2048-column chunks, the
+chain beyond); ``variant=`` forces one.  Each launch also counts under
+``<name>:cluster`` or ``<name>:chain``.
+
 The host entry points (``staleness_aggregate``, ``staleness_apply``,
 ``sweep_staleness_aggregate``, ``sweep_staleness_apply``) take any D, pad
 it to the kernels' 2048-column block on the tensors' device, and slice the
@@ -31,15 +38,52 @@ MAX_N = 1024      # rows per cell the kernels' shared-memory staging takes
 NAME = "sweep_fused_staleness_apply"
 NAMES = (NAME, "sweep_fused_staleness_aggregate", "fused_staleness_aggregate",
          "fused_staleness_apply", "deviation_partials", "weighted_aggregate")
+FUSED = NAMES[:4]         # the server-step wrappers, each with two variants
+VARIANTS = ("cluster", "chain")
+# The most chunks the cluster variant takes by default: one cluster of at
+# most 8 SMs beats the chain's three launches while U is small, and loses
+# to the chain's D / 2048 blocks once each block has to stream 3 or more
+# chunks (chip_smoke.py's variant times; PERF.md).
+CLUSTER_MAX_CHUNKS = 16
 
 # C entry point -> (pointer operands, int operands); a stream pointer follows
 _SIGNATURES = {
+    "saa_cluster_fused_apply": (7, 4),
+    "saa_cluster_fused_aggregate": (7, 4),
     "saa_sweep_fused_apply": (9, 4),
     "saa_sweep_fused_aggregate": (9, 4),
     "saa_deviation_partials": (6, 2),
     "saa_weighted_aggregate": (3, 2),
 }
+# the cluster entry points' own failures
+_ERRORS = {-1: "the card cannot schedule the thread block cluster",
+           -2: "n is too large for the cluster kernel's shared memory"}
 _fns: dict = {}
+
+
+def variant(s: int, n: int, d: int) -> str:
+    """The variant the fused wrappers take for S cells of n rows and D
+    columns (D % 2048 == 0): the cluster kernel up to
+    ``CLUSTER_MAX_CHUNKS`` chunks, else the chain.  The cluster kernel
+    stages U in shared memory while it fits and reads it from L2 beyond,
+    so n does not change the choice; nor does S (one cluster a cell)."""
+    del s, n
+    return "cluster" if d // D_BLK <= CLUSTER_MAX_CHUNKS else "chain"
+
+
+def launch_key(kernel: str, variant_: str) -> str:
+    """The ``LAUNCHES`` key that counts ``kernel``'s launches of one
+    variant."""
+    return f"{kernel}:{variant_}"
+
+
+def _variant(forced, s: int, n: int, d: int) -> str:
+    """``forced`` checked, or the variant the shape picks if None."""
+    if forced is None:
+        return variant(s, n, d)
+    if forced not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS} or None, got {forced!r}")
+    return forced
 
 
 def _cfn(name: str):
@@ -91,18 +135,34 @@ def _rule(rule: str) -> int:
     return RULE_ID[rule]
 
 
-def _launch(kernel: str, cname: str, device, *args) -> None:
+def _launch(kernel: str, cname: str, device, *args, tag=None) -> None:
     """Call C entry point ``cname`` on the current stream of ``device``
     (tensors are passed by pointer; ``args`` keeps them alive through the
     call, and the caching allocator orders any reuse of their memory after
-    the launch on this stream) and count one launch of ``kernel``."""
+    the launch on this stream) and count one launch of ``kernel``, and of
+    its variant ``tag`` if given."""
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _cfn(cname)(*ptrs, stream)
+    if device.index == torch.cuda.current_device():
+        err = _cfn(cname)(*ptrs, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = _cfn(cname)(*ptrs, torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}"
+                           + (f": {_ERRORS[err]}" if err in _ERRORS else ""))
     LAUNCHES[kernel] += 1
+    if tag is not None:
+        LAUNCHES[launch_key(kernel, tag)] += 1
+
+
+def _fused(kernel: str, mode: str, v: str, device, operands, s, n, d,
+           rule_id) -> None:
+    """One fused server step (``mode`` "apply" or "aggregate") by variant
+    ``v``: the cluster kernel, or the chain with its partials scratch."""
+    prefix, scratch = (("saa_cluster", ()) if v == "cluster" else
+                       ("saa_sweep", _scratch(s, n, d, device)))
+    _launch(kernel, f"{prefix}_fused_{mode}", device, *operands, *scratch, s,
+            n, d, rule_id, tag=v)
 
 
 def _scratch(s: int, n: int, d: int, device):
@@ -132,46 +192,48 @@ def _dims(updates, ndim: int):
 
 
 def sweep_fused_staleness_apply(params, updates, fresh, tau, valid, scal, *,
-                                rule: str = "relay"):
+                                rule: str = "relay", variant=None):
     """Fused SAA server step: params[s] += lr_s * (w_s @ U_s), in place.
 
     params: (S, D) fp32, D % 2048 == 0; updates: (S, n, D) fp32; fresh,
     valid: (S, n) bool; tau: (S, n) int32; scal: (S, 2) fp32 rows
     ``(beta_s, server_lr_s)``.  Returns (params, weights (S, n)); an
     all-invalid cell gets zero weights and keeps its parameters.
+    ``variant``: "cluster", "chain" or None (by shape; module docstring).
     """
     rule_id = _rule(rule)
     s, n, d = _dims(updates, 3)
     device = _check({"params": (params, (s, d), torch.float32),
                      **_cell_operands(updates, fresh, tau, valid, s, n, d),
                      "scal": (scal, (s, 2), torch.float32)}, s, n, d)
+    v = _variant(variant, s, n, d)
     if not _on_cuda(device, params, updates):
         return ref.sweep_fused_staleness_apply(params, updates, fresh, tau,
                                                valid, scal, rule=rule)
     w = torch.empty((s, n), dtype=torch.float32, device=device)
-    _launch(NAME, "saa_sweep_fused_apply", device, params, updates, fresh,
-            tau, valid, scal, w, *_scratch(s, n, d, device), s, n, d, rule_id)
+    _fused(NAME, "apply", v, device,
+           (params, updates, fresh, tau, valid, scal, w), s, n, d, rule_id)
     return params, w
 
 
 def sweep_fused_staleness_aggregate(updates, fresh, tau, beta, valid, *,
-                                    rule: str = "relay"):
+                                    rule: str = "relay", variant=None):
     """Per-cell SAA aggregate: updates (S, n, D) fp32, D % 2048 == 0;
     fresh/valid (S, n) bool; tau (S, n) int32; beta (S,) fp32.  Returns
     (aggregate (S, D), weights (S, n)); an all-invalid cell gets zero
-    weights and a zero aggregate row."""
+    weights and a zero aggregate row.  ``variant`` as the apply's."""
     rule_id = _rule(rule)
     s, n, d = _dims(updates, 3)
     device = _check({**_cell_operands(updates, fresh, tau, valid, s, n, d),
                      "beta": (beta, (s,), torch.float32)}, s, n, d)
+    v = _variant(variant, s, n, d)
     if not _on_cuda(device, updates):
         return ref.sweep_fused_staleness_aggregate(updates, fresh, tau, beta,
                                                    valid, rule=rule)
     w = torch.empty((s, n), dtype=torch.float32, device=device)
     agg = torch.empty((s, d), dtype=torch.float32, device=device)
-    _launch("sweep_fused_staleness_aggregate", "saa_sweep_fused_aggregate",
-            device, updates, fresh, tau, valid, beta, w, agg,
-            *_scratch(s, n, d, device), s, n, d, rule_id)
+    _fused("sweep_fused_staleness_aggregate", "aggregate", v, device,
+           (updates, fresh, tau, valid, beta, w, agg), s, n, d, rule_id)
     return agg, w
 
 
@@ -180,10 +242,11 @@ def _all_valid(valid, fresh):
 
 
 def fused_staleness_aggregate(updates, fresh, tau, beta, *, rule: str = "relay",
-                              valid=None):
+                              valid=None, variant=None):
     """One cell: updates (n, D) fp32, D % 2048 == 0; fresh (n,) bool; tau
     (n,) int32; ``beta`` a float.  ``valid`` (n,) bool masks padding rows
-    (default: all).  Returns (aggregate (D,), weights (n,))."""
+    (default: all).  Returns (aggregate (D,), weights (n,)).  ``variant``
+    as ``sweep_fused_staleness_apply``'s."""
     rule_id = _rule(rule)
     n, d = _dims(updates, 2)
     valid = _all_valid(valid, fresh)
@@ -191,23 +254,23 @@ def fused_staleness_aggregate(updates, fresh, tau, beta, *, rule: str = "relay",
                      "fresh": (fresh, (n,), torch.bool),
                      "tau": (tau, (n,), torch.int32),
                      "valid": (valid, (n,), torch.bool)}, 1, n, d)
+    v = _variant(variant, 1, n, d)
     beta_t = torch.full((1,), float(beta), dtype=torch.float32, device=device)
     if not _on_cuda(device, updates):
         return ref.fused_staleness_aggregate(updates, fresh, tau, beta_t,
                                              valid, rule=rule)
     w = torch.empty((n,), dtype=torch.float32, device=device)
     agg = torch.empty((d,), dtype=torch.float32, device=device)
-    _launch("fused_staleness_aggregate", "saa_sweep_fused_aggregate", device,
-            updates, fresh, tau, valid, beta_t, w, agg,
-            *_scratch(1, n, d, device), 1, n, d, rule_id)
+    _fused("fused_staleness_aggregate", "aggregate", v, device,
+           (updates, fresh, tau, valid, beta_t, w, agg), 1, n, d, rule_id)
     return agg, w
 
 
 def fused_staleness_apply(params, updates, fresh, tau, beta, server_lr, *,
-                          rule: str = "relay", valid=None):
+                          rule: str = "relay", valid=None, variant=None):
     """One cell's server step, in place: params (D,) += server_lr * (w @ U).
-    Operands as ``fused_staleness_aggregate``; returns (params, weights
-    (n,))."""
+    Operands and ``variant`` as ``fused_staleness_aggregate``; returns
+    (params, weights (n,))."""
     rule_id = _rule(rule)
     n, d = _dims(updates, 2)
     valid = _all_valid(valid, fresh)
@@ -216,15 +279,15 @@ def fused_staleness_apply(params, updates, fresh, tau, beta, server_lr, *,
                      "fresh": (fresh, (n,), torch.bool),
                      "tau": (tau, (n,), torch.int32),
                      "valid": (valid, (n,), torch.bool)}, 1, n, d)
+    v = _variant(variant, 1, n, d)
     scal = torch.empty((1, 2), dtype=torch.float32, device=device)
     scal[:, 0], scal[:, 1] = float(beta), float(server_lr)   # fills, no copy
     if not _on_cuda(device, params, updates):
         return ref.fused_staleness_apply(params, updates, fresh, tau, valid,
                                          scal, rule=rule)
     w = torch.empty((n,), dtype=torch.float32, device=device)
-    _launch("fused_staleness_apply", "saa_sweep_fused_apply", device, params,
-            updates, fresh, tau, valid, scal, w, *_scratch(1, n, d, device),
-            1, n, d, rule_id)
+    _fused("fused_staleness_apply", "apply", v, device,
+           (params, updates, fresh, tau, valid, scal, w), 1, n, d, rule_id)
     return params, w
 
 
