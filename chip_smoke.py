@@ -13,10 +13,14 @@ From the repository root, with nothing built beforehand.  It
      aggregate kernels followed by torch's ``params + lr * agg``, and the
      one-launch cluster kernel of kernels 1-4 bit for bit to their
      three-launch chain (U in shared memory, U read from L2, one to three
-     chunks a block); holds the
+     chunks a block), and ``weighted_aggregate`` bit for bit to the server
+     step's aggregate on its weights; holds the
      trimmed-mean kernel against its plain version (mixed trim depths and
-     valid counts, +inf exclusion rows, D off the 2048 block, ties, even
-     and odd medians, degenerate cells); after step 4 it does the same at every
+     valid counts, +inf exclusion rows, D off the 2048 block, ties, -0.0 and
+     +0.0 tied, even and odd medians, degenerate cells, n around each
+     variant's edges), each of its variants (regs, sort, rank) forced and
+     held bit for bit to the row-order plain version; after step 4 it does
+     the same at every
      participant count n the paths ran a kernel at; holds the sliding-window
      attention kernels (bf16 on the tensor-core kernel, fp32 on the CUDA-core
      one, each counted; GQA groups 1-8, head dims 64 and 128, windows 128,
@@ -39,8 +43,9 @@ From the repository root, with nothing built beforehand.  It
      attacked saa, multi_krum and norm_median_clip launch no kernel, and
      coord_median and trimmed_mean launch ``sweep_trimmed_aggregate``.
      Every kernel must launch exactly once per round that aggregated on
-     its path (kernels 1-4 each time on the cluster kernel), and no other
-     kernel may launch; then each campaign is timed
+     its path (kernels 1-4 each time on the cluster kernel, the trimmed
+     mean on the variant its n takes), and no other kernel may launch;
+     then each campaign is timed
      warm (rounds/s) and profiled (device busy share, host spans, top GPU
      kernels); then the model zoo's serve path in bf16: internlm2-1.8b+swa
      prefill and logits (``swa_attention_bhsd``, every launch on its
@@ -62,7 +67,11 @@ From the repository root, with nothing built beforehand.  It
      for kernels 1-4 also the profiler's device time of their kernels, the
      launch floor (one empty block), both variants of the server step from
      the main shape to the large one, and the cluster kernel's phases (a
-     copy built with its device-clock stamps);
+     copy built with its device-clock stamps); for the trimmed mean every
+     variant's time at n = 10, 16, 32, 64, 128 and 256; for
+     ``weighted_aggregate`` the library call's kernel time, the chain's
+     ``saa_apply`` (its route before) and where its host time goes (the
+     "wrapper host path" line);
      each build's registers and spills, per kernel, are printed after step 2.
 It exits non-zero, printing no result, on any failure or without a GPU.
 The next-to-last line is the per-kernel JSON summary, the last line
@@ -125,11 +134,29 @@ VARIANT_SHAPES = {"main n=10": (1, 10, MAIN_D), "n=16": (1, 16, MAIN_D),
                      for c in (8, 9, 12, 16, 17, 20, 24, 32, 64)}}
 TRIM = "sweep_trimmed_aggregate"
 KERNEL_NAMES = {PARTIALS: ("saa_partials(", "saa_partials_sum("),
-                WAGG: ("saa_apply(",), TRIM: ("trimmed_band_mean(",)}
+                WAGG: ("saa_weighted_agg(",)}
+# the trimmed mean's GPU kernel by variant
+TRIM_KERNELS = {"regs": ("trimmed_regs<",), "sort": ("trimmed_sort<",),
+                "rank": ("trimmed_band_mean(",)}
 REPLACES = {**SAA_REPLACES,
             TRIM: "src/repro/kernels/trimmed_agg/trimmed_agg.py:61"}
 TRIM_D = (2048, 2 * 2048 + 37, 12835)   # the TPU block, off it, the model
-TRIM_CASES = ("mixed", "ties", "median", "degenerate", "equal")
+TRIM_CASES = ("mixed", "ties", "signed_zero", "median", "degenerate", "equal")
+# the trimmed mean's check grid: n around each variant's edges (8 and 16
+# register slots; 1, 2 and 8 sorting threads a column), and the race's n
+TRIM_GRID_N = (1, 2, 3, 6, 9, 16, 31, 32, 33, 63, 64, 65, 255, 256, 257)
+# n around the sort's 1024-row limit (the rank count past it), at D = 2048
+TRIM_EDGE_N = (1023, 1024, 1025)
+# the most rows at which the kernel is also held to the sort formula: the
+# formula sums the band pairwise, the kernel (as the Pallas kernel) in row
+# order, and past a few hundred rows the two drift apart by up to ~n ulps
+# (4.5e-5 relative for 1,020 equal values at n = 1023), beyond the weights'
+# tolerance; there the row-order plain version alone holds it, bit for bit
+TRIM_FORMULA_MAX_N = 257
+# the trimmed mean's times: (n, D) by label; n = 16 (the regs variant's
+# last n), 32 and 128 set the variants' thresholds
+TRIM_TIMES = {"n16": (16, 1 << 20), "n32": (32, 1 << 20), "large": (64, 1 << 20),
+              "n128": (128, 1 << 20), "n256": (256, 1 << 18)}
 # examples/chaos_round.py's robustness race at its full size: the
 # quickstart's model, a colluding sign-flip attack on 10% of the learners
 RACE = dict(n_learners=100, rounds=40, eval_every=10, n_target=10,
@@ -270,6 +297,8 @@ class Checks:
         self.err = Counter()
         self.rel = Counter()
         self.same = Counter()     # cluster == chain checks, by default variant
+        self.bits = Counter()     # bitwise checks: kernel 6 == the server
+        #                           step's aggregate; trimmed mean by variant
 
     def close(self, kernel, got, want, what, weights=False, tol=None):
         """``weights``: hold to the weights' (and the trimmed mean's)
@@ -347,6 +376,12 @@ def check_family(torch, ops, ref, checks, s, n, d, rule, case, gen,
         fail(f"an all-invalid cell got weight at {what}")
     if not (torch.equal(w_k, w2) and torch.equal(p_k, params + lr[:, None] * agg)):
         fail(f"apply kernel != params + lr * aggregate kernel, bitwise, at {what}")
+    # kernel 6 on the server step's weights: the same aggregate, bitwise
+    for cell in range(s):
+        if not bits_equal(torch, ops.weighted_aggregate(w2[cell], u[cell]), agg[cell]):
+            fail(f"{WAGG} != the server step's aggregate on its weights, bitwise, "
+                 f"at {what} cell {cell}")
+        checks.bits[WAGG] += 1
     # 3 and 4: one cell (the last, which is all-invalid in that case)
     c = s - 1
     b, l = float(beta[c]), float(lr[c])
@@ -394,6 +429,12 @@ def check_family(torch, ops, ref, checks, s, n, d, rule, case, gen,
     checks.count(PARTIALS, WAGG)
 
 
+def bits_equal(torch, a, b) -> bool:
+    """Equal bit for bit (-0.0 and +0.0 differ), fp32."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
 def trimmed_inputs(torch, n, d, case, gen):
     """Operands of the trimmed-mean kernel for one check, three cells:
     y (3, n, D) with +inf rows past each cell's valid count, k_eff and c
@@ -402,6 +443,8 @@ def trimmed_inputs(torch, n, d, case, gen):
     y = torch.randn((3, n, d), generator=gen, device=dev)
     if case == "ties":
         y = torch.round(y * 2) / 2          # a few distinct values: many ties
+    elif case == "signed_zero":
+        y = torch.round(y * 0.7)            # mostly -0.0 and +0.0, tied, and +-1, +-2
     elif case == "equal":
         y = y[:, :1].expand(3, n, d).contiguous()   # one value per column
     c = [0, 1, n] if case == "degenerate" else [n, max(n - 1, 1), max(n - 3, 1)]
@@ -417,16 +460,31 @@ def trimmed_inputs(torch, n, d, case, gen):
 
 def check_trimmed(torch, ops, ref, checks, n, d, case, gen):
     """The trimmed-mean kernel on one set of operands against its plain
-    version (the kernel sums the band in row order, the plain version in
-    sorted order: the weights' tolerance, as the JAX tests hold it)."""
+    versions: the default variant against the sort formula up to
+    ``TRIM_FORMULA_MAX_N`` rows (the kernel sums the band in row order, the
+    formula in sorted order: the weights' tolerance, as the JAX tests hold
+    it), and every variant that takes n, forced, against the row-order
+    plain version bit for bit."""
     y, k, c = trimmed_inputs(torch, n, d, case, gen)
     got = ops.sweep_trimmed_aggregate(y, k, c)
     want = ref.sweep_trimmed_aggregate(y, k, c)
+    rows = ref.sweep_trimmed_aggregate_rows(y, k, c)
     torch.cuda.synchronize()
     what = f"S=3 n={n} D={d} case={case} k={k.tolist()} c={c.tolist()}"
-    checks.close(TRIM, got, want, what, weights=True)
+    if n <= TRIM_FORMULA_MAX_N:
+        checks.close(TRIM, got, want, what, weights=True)
     if case == "degenerate" and (got[0].any() or not torch.equal(got[1], y[1, 0])):
         fail(f"{TRIM}: c = 0 must give zeros and c = 1 its row, at {what}")
+    for v in ops.VARIANTS:
+        if ops.MAX_ROWS[v] is not None and n > ops.MAX_ROWS[v]:
+            continue
+        got_v = ops.sweep_trimmed_aggregate(y, k, c, variant=v)
+        if not bits_equal(torch, got_v, rows):
+            bad = (got_v.view(torch.int32) != rows.view(torch.int32)).nonzero()
+            fail(f"{TRIM} variant {v} != the row-order plain version, bitwise, at "
+                 f"{what}: {bad.shape[0]} values, first at {bad[0].tolist()}: "
+                 f"{got_v[tuple(bad[0])].item()!r} vs {rows[tuple(bad[0])].item()!r}")
+        checks.bits[f"{TRIM}:{v}"] += 1
     checks.count(TRIM)
 
 
@@ -495,6 +553,70 @@ def kernel_ms(torch, fn, names, calls=200) -> float:
                  f"times, got {[(e.key[:60], e.count) for e in hits]}")
         total += hits[0].device_time_total / hits[0].count
     return total / 1e3
+
+
+def all_kernels_ms(torch, fn, calls=200) -> float:
+    """Device time of one call of ``fn``, summed over every GPU kernel of a
+    profiler trace of ``calls`` calls (for a library call whose kernels'
+    names this script does not know)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if e.device_time_total > 0]
+    if not hits:
+        fail("profiler: no device time in a trace of the library call")
+    launches = sum(e.count for e in hits)
+    return sum(e.device_time_total for e in hits) / 1e3 / calls, launches / calls
+
+
+def host_path(torch, ops, launch, n, d, gen, calls=10_000) -> dict:
+    """Where ``weighted_aggregate``'s host time goes, on the card's host:
+    each step of the wrapper timed alone over ``calls`` calls by the host
+    clock (ns a call; the launches are not waited for), beside the whole
+    wrapper, the route it replaced (the full checks, a ``Stream`` object)
+    and ``torch.mv(U.T, w)``."""
+    u = torch.randn((n, d), generator=gen, device="cuda")
+    w = torch.rand((n,), generator=gen, device="cuda")
+    out = torch.empty((d,), device="cuda")
+    entry = ops._WAGG
+    fn = entry.bind()
+    ptrs = (w.data_ptr(), u.data_ptr(), out.data_ptr(), n, d)
+    index = u.device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    steps = {
+        "whole wrapper": lambda: ops.weighted_aggregate(w, u),
+        "signature": lambda: launch.signature((w, u)),
+        "memoised plan (signature + lookup)": lambda: ops._plan_weighted((w, u)),
+        "full checks (the first call's route)": lambda: ops._plan_weighted.check(w, u),
+        "torch.empty": lambda: torch.empty((d,), dtype=torch.float32, device=u.device),
+        "new_empty": lambda: u.new_empty((d,)),
+        "current device": lambda: torch._C._cuda_getDevice(),
+        "raw current stream": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "Stream object's pointer (the old route)":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "data pointers": lambda: (w.data_ptr(), u.data_ptr(), out.data_ptr()),
+        "C call (ctypes, argtypes)": lambda: fn(*ptrs, stream),
+        "launch() (device, stream, C call, count)":
+            lambda: launch.launch("host path probe", entry, index, ptrs),
+        "torch.mv(U.T, w)": lambda: torch.mv(u.t(), w),
+    }
+    res = {}
+    for name, step in steps.items():
+        for _ in range(100):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            step()
+        res[name] = (time.perf_counter_ns() - t0) / calls
+        torch.cuda.synchronize()
+    from repro_torch.kernels import LAUNCHES
+    LAUNCHES.pop("host path probe", None)
+    return res
 
 
 def launch_floor(torch, lib) -> dict:
@@ -639,14 +761,20 @@ def kernel_calls(torch, ops, ref, kernel, s, n, d, gen):
 
 
 def time_kernel(torch, ops, ref, kernel, s, n, d, iters, gen) -> dict:
-    """Events (plain, kernel, kernel, plain: the card's clocks drift over a
-    call) and CUDA-graph device times of a kernel, its plain version and
-    its library call, beside its bound from these inputs."""
+    """Events (plain, kernel, kernel, plain, then library, kernel, kernel,
+    library: the card's and the host's clocks drift over a call) and
+    CUDA-graph device times of a kernel, its plain version and its library
+    call, beside its bound from these inputs; for a library call also its
+    kernels' time by the profiler, and for kernel 6 the time of its former
+    route (the chain's ``saa_apply``) at the same shape."""
     k, p, lib, nf = kernel_calls(torch, ops, ref, kernel, s, n, d, gen)
     single = kernel not in (APPLY, AGG)
     shape = {"n": n, "D": d} if single else {"S": s, "n": n, "D": d}
     pr1, k1 = time_ms(torch, p, iters), time_ms(torch, k, iters)
     k2, pr2 = time_ms(torch, k, iters), time_ms(torch, p, iters)
+    if lib is not None:          # the library call in turns with the kernel
+        l1, k3 = time_ms(torch, lib, iters), time_ms(torch, k, iters)
+        k4, l2 = time_ms(torch, k, iters), time_ms(torch, lib, iters)
     nbytes, flops = saa_cost(kernel, 1 if single else s, n, d, nf)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
     res = {"shape": shape, "ms": min(k1, k2), "ms_runs": [k1, k2],
@@ -660,34 +788,60 @@ def time_kernel(torch, ops, ref, kernel, s, n, d, iters, gen) -> dict:
     res["kernel_ms"] = kernel_ms(torch, k, VARIANT_KERNELS[res["variant"]]
                                  if kernel in FUSED else KERNEL_NAMES[kernel])
     if lib is not None:
-        res["library_ms"] = min(time_ms(torch, lib, iters), time_ms(torch, lib, iters))
-        res["library_device_ms"] = graph_ms(torch, lib)
+        res.update(library_ms=min(l1, l2), library_ms_runs=[l1, l2],
+                   ms_runs=[k1, k2, k3, k4], ms=min(k1, k2, k3, k4),
+                   library_device_ms=graph_ms(torch, lib))
+        res["library_kernel_ms"], res["library_kernels_a_call"] = all_kernels_ms(torch, lib)
+    if kernel == WAGG:           # its former route: the chain's saa_apply
+        _, u, fresh, tau, valid, scal = saa_inputs(torch, 1, n, d, "mixed", gen)
+        chain = lambda: ops.sweep_fused_staleness_aggregate(
+            u, fresh, tau, scal[:, 0].contiguous(), valid, variant="chain")
+        res["saa_apply_kernel_ms"] = kernel_ms(torch, chain, ("saa_apply(",))
     return res
 
 
-def time_trimmed(torch, ops, ref, n, d, iters, gen) -> dict:
+def time_trimmed(torch, ops, ref, n, d, iters, gen, plain=True) -> dict:
     """As ``time_kernel``, for the trimmed-mean kernel on one cell of n
     valid rows at the median's trim depth (the work does not depend on
-    it).  No single PyTorch call computes the band mean (a sort and a
-    masked sum are two), so there is no library time."""
+    it): the variant the wrapper takes, and under ``variants`` every
+    variant that takes n, forced (events, graph replay, the profiler's
+    kernel time; the rank count's events in turns with the default's).  No
+    single PyTorch call computes the band mean (a sort and a masked sum are
+    two), so there is no library time.  ``plain``: time the plain version
+    too."""
     y = torch.randn((1, n, d), generator=gen, device="cuda")
     k = torch.tensor([(n - 1) // 2], dtype=torch.int32, device="cuda")
     c = torch.tensor([n], dtype=torch.int32, device="cuda")
-    kern = lambda: ops.sweep_trimmed_aggregate(y, k, c)
-    plain = lambda: ref.sweep_trimmed_aggregate(y, k, c)
-    pr1, k1 = time_ms(torch, plain, iters), time_ms(torch, kern, iters)
-    k2, pr2 = time_ms(torch, kern, iters), time_ms(torch, plain, iters)
+    call = lambda v=None: (lambda: ops.sweep_trimmed_aggregate(y, k, c, variant=v))
+    kern, default = call(), ops.variant(n)
     nbytes, lane_ops = trimmed_cost(1, n, d, n - 2 * ((n - 1) // 2))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = lane_ops / PEAK_FP32_LANE_OPS * 1e3
-    return {"shape": {"n": n, "D": d}, "ms": min(k1, k2), "ms_runs": [k1, k2],
-            "plain_ms": min(pr1, pr2), "plain_ms_runs": [pr1, pr2],
-            "device_ms": graph_ms(torch, kern),
-            "kernel_ms": kernel_ms(torch, kern, KERNEL_NAMES[TRIM]),
-            "plain_device_ms": graph_ms(torch, plain), "bytes": nbytes,
-            "lane_ops": lane_ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "library_device_ms": None}
+    res = {"shape": {"n": n, "D": d}, "variant": default, "bytes": nbytes,
+           "lane_ops": lane_ops, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "library_device_ms": None, "variants": {}}
+    if plain:
+        pl = lambda: ref.sweep_trimmed_aggregate(y, k, c)
+        pr1, k1 = time_ms(torch, pl, iters), time_ms(torch, kern, iters)
+        k2, pr2 = time_ms(torch, kern, iters), time_ms(torch, pl, iters)
+        res.update(ms=min(k1, k2), ms_runs=[k1, k2], plain_ms=min(pr1, pr2),
+                   plain_ms_runs=[pr1, pr2], plain_device_ms=graph_ms(torch, pl))
+    for v in ops.VARIANTS:
+        if ops.MAX_ROWS[v] is not None and n > ops.MAX_ROWS[v]:
+            continue
+        fn = call(v)
+        runs = [time_ms(torch, fn, iters), time_ms(torch, kern, iters),
+                time_ms(torch, kern, iters), time_ms(torch, fn, iters)]
+        res["variants"][v] = {"ms": min(runs[0], runs[3]), "ms_runs": [runs[0], runs[3]],
+                              "default_ms_runs": runs[1:3],
+                              "device_ms": graph_ms(torch, fn),
+                              "kernel_ms": kernel_ms(torch, fn, TRIM_KERNELS[v])}
+    if not plain:
+        res["ms"] = res["variants"][default]["ms"]
+    res["device_ms"] = res["variants"][default]["device_ms"]
+    res["kernel_ms"] = res["variants"][default]["kernel_ms"]
+    return res
 
 
 # --- the model zoo's serve path: kernels 8 and 9 --------------------------
@@ -1319,13 +1473,20 @@ def main():
                 for case in TRIM_CASES:
                     check_trimmed(torch, trim_ops, trim_ref, checks, n, d,
                                   case, gen)
-    trim_grid_n = (2, 6, 9, 16, 64)
-    check_trim_grid(trim_grid_n, TRIM_D)
+    r_max = trim_ops.REGS_MAX_N   # n around the regs/sort threshold too
+    check_trim_grid(sorted({*TRIM_GRID_N, r_max - 1, r_max, r_max + 1}), TRIM_D)
+    check_trim_grid(TRIM_EDGE_N, TRIM_D[:1])
     for k in REPLACES:
         print(f"{k} == plain version in {checks.n[k]} checks "
               f"(max abs err {checks.err[k]:.3g}, relative {checks.rel[k]:.3g})")
     print("apply kernels == aggregate kernels + torch's params + lr * agg, "
           "bitwise, in every check")
+    print(f"{WAGG} == the server step's aggregate on its weights, bitwise, in "
+          f"{checks.bits[WAGG]} checks; {TRIM} variants == the row-order plain "
+          f"version, bitwise, in " + ", ".join(
+              f"{checks.bits[f'{TRIM}:{v}']} ({v})" for v in trim_ops.VARIANTS)
+          + f" checks (the wrapper takes regs up to n = {trim_ops.REGS_MAX_N}, sort "
+          f"up to {trim_ops.MAX_ROWS['sort']}, rank beyond)")
     print(f"cluster kernel == chain, bitwise (weights, aggregates, params of "
           f"kernels 1-4), in {sum(checks.same.values())} checks "
           f"({dict(checks.same)} by the variant the shape takes)")
@@ -1362,10 +1523,15 @@ def main():
         want = {} if kernel is None else {kernel: n_agg}
         if kernel in FUSED:              # every server step on the cluster kernel
             want[saa_ops.launch_key(kernel, "cluster")] = n_agg
+        if kernel == TRIM:               # each round on the variant its n takes
+            want.update(Counter(
+                saa_ops.launch_key(TRIM, trim_ops.variant(r.n_fresh + r.n_stale))
+                for r in gpu[name].records if r.n_fresh + r.n_stale > 0))
         if n_agg == 0 or got != want:
             fail(f"{name}: launches {got}, expected {want} (one per round "
-                 "that aggregated, each on the cluster kernel for kernels 1-4, "
-                 "and no other kernel)")
+                 "that aggregated, each on the cluster kernel for kernels 1-4 "
+                 "and on the variant its n takes for the trimmed mean, and no "
+                 "other kernel)")
         launches.update(got)
         summ = gpu[name].summary()
         report["paths"][name] = {
@@ -1562,19 +1728,37 @@ def main():
         "main": time_trimmed(torch, trim_ops, trim_ref,
                              ns[TRIM].most_common(1)[0][0], TRIM_D[-1], 500,
                              gen),
-        "large": time_trimmed(torch, trim_ops, trim_ref, 64, 1 << 20, 20, gen),
-        "n256": time_trimmed(torch, trim_ops, trim_ref, 256, 1 << 18, 10, gen)}
+        **{label: time_trimmed(torch, trim_ops, trim_ref, n_, d_, 20 if n_ < 256 else 10,
+                               gen, plain=label in ("large", "n256"))
+           for label, (n_, d_) in TRIM_TIMES.items()}}
     for kernel in REPLACES:
         for label, t in times[kernel].items():
             lib = ("" if t["library_ms"] is None else
                    f", library {t['library_ms']:.4f} ms (device "
-                   f"{t['library_device_ms']:.4f})")
+                   f"{t['library_device_ms']:.4f}, its kernels "
+                   f"{t['library_kernel_ms']:.5f} by the profiler)")
             var = (f" [{t['variant']}]" if "variant" in t else "") + (
                 f", its kernels {t['kernel_ms']:.5f} by the profiler")
+            plain = ("" if "plain_ms" not in t else
+                     f", plain {t['plain_ms']:.4f} ms (device {t['plain_device_ms']:.4f})")
+            old = ("" if "saa_apply_kernel_ms" not in t else
+                   f"; its former route, the chain's saa_apply, "
+                   f"{t['saa_apply_kernel_ms']:.5f} by the profiler")
             print(f"{kernel} {label} {t['shape']}: kernel {t['ms']:.4f} ms "
-                  f"(device {t['device_ms']:.4f}){var}, plain {t['plain_ms']:.4f} ms "
-                  f"(device {t['plain_device_ms']:.4f}){lib}, bound "
-                  f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+                  f"(device {t['device_ms']:.4f}){var}{plain}{lib}, bound "
+                  f"{t['bound_ms']:.6f} ms ({t['bound_by']}){old}")
+            for v, tv in t.get("variants", {}).items():
+                print(f"  {kernel} {label} variant {v}: {tv['ms']:.4f} ms events (the "
+                      f"default's in turn {min(tv['default_ms_runs']):.4f}), device "
+                      f"{tv['device_ms']:.4f}, its kernel {tv['kernel_ms']:.5f} by the "
+                      f"profiler")
+    # where kernel 6's host time goes
+    from repro_torch.kernels import _launch
+    host_ns = host_path(torch, saa_ops, _launch, ns[WAGG].most_common(1)[0][0], MAIN_D, gen)
+    print(f"wrapper host path ({WAGG}, n={ns[WAGG].most_common(1)[0][0]} D={MAIN_D}; ns a "
+          f"call, host clock, 10,000 calls each): " + "; ".join(
+              f"{k} {v:.0f}" for k, v in host_ns.items()))
+    times["host_path"] = host_ns
     # the fused server step's two variants, beside the launch floor
     floor = launch_floor(torch, _build.library("staleness_agg"))
     print(f"launch floor, one empty block: {floor['ms']:.5f} ms events, "

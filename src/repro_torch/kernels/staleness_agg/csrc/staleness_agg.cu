@@ -26,7 +26,8 @@
 //                                server step at large D)
 //   saa_deviation_partials       partials -> partials_sum          (Pallas
 //                                deviation_partials)
-//   saa_weighted_aggregate       aggregate on given weights        (Pallas
+//   saa_weighted_aggregate       aggregate on given weights, its own
+//                                narrow-tiled kernel (Pallas
 //                                weighted_aggregate)
 //   saa_empty                    one empty block: the launch floor
 //
@@ -480,6 +481,52 @@ saa_apply(float* __restrict__ params, const float* __restrict__ u,
 }
 
 // ---------------------------------------------------------------------------
+// The weighted aggregate on given weights (Pallas weighted_aggregate)
+// ---------------------------------------------------------------------------
+
+// out (d,) = w @ U on one cell.  One warp a block, four columns a thread:
+// 128 columns a block, so D = 14336 gives 112 blocks on the 132 SMs, where
+// the chain's saa_apply (2048 columns a block, eight a thread) gives 7.
+// kWaggRows rows' loads are issued together before their multiply-adds (of
+// 8 and 16 rows, and 1, 2 or 4 columns a thread, tried on the H100, 8 rows
+// of four columns held up best from the main shape to n = 64, D = 2^20; 16
+// rows took twice the registers and streamed the large shape more slowly).
+// Each column's sum is chunk_apply's: __fmaf_rn over rows 0..n-1 in order
+// from +0, so the result equals saa_apply's aggregate (and the cluster
+// kernel's) bit for bit.
+constexpr int kWaggThreads = 32;
+constexpr int kWaggCols = 4 * kWaggThreads;
+constexpr int kWaggRows = 8;
+
+__global__ void __launch_bounds__(kWaggThreads)
+saa_weighted_agg(const float* __restrict__ w, const float* __restrict__ u,
+                 float* __restrict__ out, int n, int d) {
+  const float* col = u + (size_t)blockIdx.x * kWaggCols + threadIdx.x * 4;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i0 = 0; i0 < n; i0 += kWaggRows) {
+    float4 r[kWaggRows];
+    float wi[kWaggRows];
+#pragma unroll
+    for (int k = 0; k < kWaggRows; ++k) {
+      if (i0 + k < n) {
+        r[k] = ld4(col + (size_t)(i0 + k) * d);
+        wi[k] = __ldg(w + i0 + k);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kWaggRows; ++k) {
+      if (i0 + k < n) {
+        acc.x = __fmaf_rn(wi[k], r[k].x, acc.x);
+        acc.y = __fmaf_rn(wi[k], r[k].y, acc.y);
+        acc.z = __fmaf_rn(wi[k], r[k].z, acc.z);
+        acc.w = __fmaf_rn(wi[k], r[k].w, acc.w);
+      }
+    }
+  }
+  st4(out + (size_t)blockIdx.x * kWaggCols + threadIdx.x * 4, acc);
+}
+
+// ---------------------------------------------------------------------------
 // The cluster kernel
 // ---------------------------------------------------------------------------
 
@@ -861,9 +908,8 @@ extern "C" int saa_deviation_partials(const float* u, const uint8_t* fresh,
 // One cell: out (d,) = w @ U on given weights w (n,).
 extern "C" int saa_weighted_aggregate(const float* w, const float* u,
                                       float* out, int n, int d, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  saa_apply<<<dim3(d / kCols, 1), kThreads, (size_t)n * sizeof(float), st>>>(
-      nullptr, u, w, nullptr, out, n, d);
+  saa_weighted_agg<<<d / kWaggCols, kWaggThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(w, u, out, n, d);
   return (int)cudaGetLastError();
 }
 

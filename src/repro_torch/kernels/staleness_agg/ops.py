@@ -17,6 +17,11 @@ shape (the cluster up to ``CLUSTER_MAX_CHUNKS`` 2048-column chunks, the
 chain beyond); ``variant=`` forces one.  Each launch also counts under
 ``<name>:cluster`` or ``<name>:chain``.
 
+Every wrapper checks its operands through ``repro_torch.kernels._launch``:
+in full for a new signature of operands (shapes, types, device, contiguity,
+alignment, rule, variant), by one lookup for a repeated one, and launches
+through its lean C call (the raw current stream, no ``Stream`` object).
+
 The host entry points (``staleness_aggregate``, ``staleness_apply``,
 ``sweep_staleness_aggregate``, ``sweep_staleness_apply``) take any D, pad
 it to the kernels' 2048-column block on the tensors' device, and slice the
@@ -24,13 +29,12 @@ results back.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core.aggregation import bucket_pad, pad_cols
 from repro_torch.core.staleness import RULE_ID
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import _launch
+from repro_torch.kernels._launch import CEntry, Checked
 from repro_torch.kernels.staleness_agg import ref
 
 D_BLK = 2048      # columns per CUDA block; D must be a multiple
@@ -46,19 +50,19 @@ VARIANTS = ("cluster", "chain")
 # chunks (chip_smoke.py's variant times; PERF.md).
 CLUSTER_MAX_CHUNKS = 16
 
-# C entry point -> (pointer operands, int operands); a stream pointer follows
-_SIGNATURES = {
-    "saa_cluster_fused_apply": (7, 4),
-    "saa_cluster_fused_aggregate": (7, 4),
-    "saa_sweep_fused_apply": (9, 4),
-    "saa_sweep_fused_aggregate": (9, 4),
-    "saa_deviation_partials": (6, 2),
-    "saa_weighted_aggregate": (3, 2),
-}
+# the C entry points: (pointer operands, int operands), then the stream
+_ENTRIES = {name: CEntry("staleness_agg", name, n_ptr, n_int)
+            for name, (n_ptr, n_int) in {
+                "saa_cluster_fused_apply": (7, 4),
+                "saa_cluster_fused_aggregate": (7, 4),
+                "saa_sweep_fused_apply": (9, 4),
+                "saa_sweep_fused_aggregate": (9, 4),
+                "saa_deviation_partials": (6, 2),
+                "saa_weighted_aggregate": (3, 2)}.items()}
+launch_key = _launch.launch_key      # "<kernel>:<variant>", as LAUNCHES counts it
 # the cluster entry points' own failures
 _ERRORS = {-1: "the card cannot schedule the thread block cluster",
            -2: "n is too large for the cluster kernel's shared memory"}
-_fns: dict = {}
 
 
 def variant(s: int, n: int, d: int) -> str:
@@ -71,12 +75,6 @@ def variant(s: int, n: int, d: int) -> str:
     return "cluster" if d // D_BLK <= CLUSTER_MAX_CHUNKS else "chain"
 
 
-def launch_key(kernel: str, variant_: str) -> str:
-    """The ``LAUNCHES`` key that counts ``kernel``'s launches of one
-    variant."""
-    return f"{kernel}:{variant_}"
-
-
 def _variant(forced, s: int, n: int, d: int) -> str:
     """``forced`` checked, or the variant the shape picks if None."""
     if forced is None:
@@ -84,17 +82,6 @@ def _variant(forced, s: int, n: int, d: int) -> str:
     if forced not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS} or None, got {forced!r}")
     return forced
-
-
-def _cfn(name: str):
-    if name not in _fns:
-        fn = getattr(_build.library("staleness_agg"), name)
-        n_ptr, n_int = _SIGNATURES[name]
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
 
 
 def _check(want: dict, s: int, n: int, d: int) -> torch.device:
@@ -116,17 +103,17 @@ def _check(want: dict, s: int, n: int, d: int) -> torch.device:
     return devices.pop()
 
 
-def _on_cuda(device: torch.device, *rows) -> bool:
-    """False for the CPU (run the plain version), True for a CUDA device
-    whose float rows are 16-byte aligned; raises for anything else."""
+def _cuda_device(device: torch.device, *rows):
+    """None for the CPU (run the plain version), ``device`` for a CUDA
+    device whose float rows are 16-byte aligned; raises for anything else."""
     if device.type == "cpu":
-        return False
+        return None
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     for t in rows:
         if t.data_ptr() % 16:
             raise ValueError("float row operands must be 16-byte aligned")
-    return True
+    return device
 
 
 def _rule(rule: str) -> int:
@@ -135,24 +122,11 @@ def _rule(rule: str) -> int:
     return RULE_ID[rule]
 
 
-def _launch(kernel: str, cname: str, device, *args, tag=None) -> None:
-    """Call C entry point ``cname`` on the current stream of ``device``
-    (tensors are passed by pointer; ``args`` keeps them alive through the
-    call, and the caching allocator orders any reuse of their memory after
-    the launch on this stream) and count one launch of ``kernel``, and of
-    its variant ``tag`` if given."""
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    if device.index == torch.cuda.current_device():
-        err = _cfn(cname)(*ptrs, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            err = _cfn(cname)(*ptrs, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}"
-                           + (f": {_ERRORS[err]}" if err in _ERRORS else ""))
-    LAUNCHES[kernel] += 1
-    if tag is not None:
-        LAUNCHES[launch_key(kernel, tag)] += 1
+def _run(kernel: str, cname: str, device, tensors, ints, tag=None) -> None:
+    """Launch C entry point ``cname`` on ``tensors`` (by pointer) and
+    ``ints``, counted as ``kernel`` (and ``kernel:tag``)."""
+    _launch.launch(kernel, _ENTRIES[cname], device.index,
+                   [t.data_ptr() for t in tensors] + list(ints), tag, _ERRORS)
 
 
 def _fused(kernel: str, mode: str, v: str, device, operands, s, n, d,
@@ -161,8 +135,8 @@ def _fused(kernel: str, mode: str, v: str, device, operands, s, n, d,
     ``v``: the cluster kernel, or the chain with its partials scratch."""
     prefix, scratch = (("saa_cluster", ()) if v == "cluster" else
                        ("saa_sweep", _scratch(s, n, d, device)))
-    _launch(kernel, f"{prefix}_fused_{mode}", device, *operands, *scratch, s,
-            n, d, rule_id, tag=v)
+    _run(kernel, f"{prefix}_fused_{mode}", device, (*operands, *scratch),
+         (s, n, d, rule_id), tag=v)
 
 
 def _scratch(s: int, n: int, d: int, device):
@@ -187,6 +161,77 @@ def _dims(updates, ndim: int):
 
 
 # ---------------------------------------------------------------------------
+# Each wrapper's full checks, memoised by operand signature (``_launch``):
+# each returns the plan (CUDA device or None for the CPU, sizes, rule id,
+# variant)
+# ---------------------------------------------------------------------------
+
+
+@Checked
+def _plan_sweep_apply(params, updates, fresh, tau, valid, scal, rule, forced):
+    rule_id = _rule(rule)
+    s, n, d = _dims(updates, 3)
+    device = _check({"params": (params, (s, d), torch.float32),
+                     **_cell_operands(updates, fresh, tau, valid, s, n, d),
+                     "scal": (scal, (s, 2), torch.float32)}, s, n, d)
+    v = _variant(forced, s, n, d)
+    return _cuda_device(device, params, updates), s, n, d, rule_id, v
+
+
+@Checked
+def _plan_sweep_aggregate(updates, fresh, tau, beta, valid, rule, forced):
+    rule_id = _rule(rule)
+    s, n, d = _dims(updates, 3)
+    device = _check({**_cell_operands(updates, fresh, tau, valid, s, n, d),
+                     "beta": (beta, (s,), torch.float32)}, s, n, d)
+    v = _variant(forced, s, n, d)
+    return _cuda_device(device, updates), s, n, d, rule_id, v
+
+
+def _cell(updates, fresh, tau, valid, n, d, params=None) -> dict:
+    return {**({} if params is None else
+               {"params": (params, (d,), torch.float32)}),
+            "updates": (updates, (n, d), torch.float32),
+            "fresh": (fresh, (n,), torch.bool),
+            "tau": (tau, (n,), torch.int32),
+            "valid": (valid, (n,), torch.bool)}
+
+
+@Checked
+def _plan_cell_aggregate(updates, fresh, tau, valid, rule, forced):
+    rule_id = _rule(rule)
+    n, d = _dims(updates, 2)
+    device = _check(_cell(updates, fresh, tau, valid, n, d), 1, n, d)
+    v = _variant(forced, 1, n, d)
+    return device, _cuda_device(device, updates), n, d, rule_id, v
+
+
+@Checked
+def _plan_cell_apply(params, updates, fresh, tau, valid, rule, forced):
+    rule_id = _rule(rule)
+    n, d = _dims(updates, 2)
+    device = _check(_cell(updates, fresh, tau, valid, n, d, params), 1, n, d)
+    v = _variant(forced, 1, n, d)
+    return device, _cuda_device(device, params, updates), n, d, rule_id, v
+
+
+@Checked
+def _plan_partials(updates, fresh):
+    n, d = _dims(updates, 2)
+    device = _check({"updates": (updates, (n, d), torch.float32),
+                     "fresh": (fresh, (n,), torch.bool)}, 1, n, d)
+    return _cuda_device(device, updates), n, d
+
+
+@Checked
+def _plan_weighted(weights, updates):
+    n, d = _dims(updates, 2)
+    device = _check({"weights": (weights, (n,), torch.float32),
+                     "updates": (updates, (n, d), torch.float32)}, 1, n, d)
+    return _cuda_device(device, updates), n, d
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers, one per Pallas function
 # ---------------------------------------------------------------------------
 
@@ -201,13 +246,9 @@ def sweep_fused_staleness_apply(params, updates, fresh, tau, valid, scal, *,
     all-invalid cell gets zero weights and keeps its parameters.
     ``variant``: "cluster", "chain" or None (by shape; module docstring).
     """
-    rule_id = _rule(rule)
-    s, n, d = _dims(updates, 3)
-    device = _check({"params": (params, (s, d), torch.float32),
-                     **_cell_operands(updates, fresh, tau, valid, s, n, d),
-                     "scal": (scal, (s, 2), torch.float32)}, s, n, d)
-    v = _variant(variant, s, n, d)
-    if not _on_cuda(device, params, updates):
+    device, s, n, d, rule_id, v = _plan_sweep_apply(
+        (params, updates, fresh, tau, valid, scal), rule, variant)
+    if device is None:
         return ref.sweep_fused_staleness_apply(params, updates, fresh, tau,
                                                valid, scal, rule=rule)
     w = torch.empty((s, n), dtype=torch.float32, device=device)
@@ -222,12 +263,9 @@ def sweep_fused_staleness_aggregate(updates, fresh, tau, beta, valid, *,
     fresh/valid (S, n) bool; tau (S, n) int32; beta (S,) fp32.  Returns
     (aggregate (S, D), weights (S, n)); an all-invalid cell gets zero
     weights and a zero aggregate row.  ``variant`` as the apply's."""
-    rule_id = _rule(rule)
-    s, n, d = _dims(updates, 3)
-    device = _check({**_cell_operands(updates, fresh, tau, valid, s, n, d),
-                     "beta": (beta, (s,), torch.float32)}, s, n, d)
-    v = _variant(variant, s, n, d)
-    if not _on_cuda(device, updates):
+    device, s, n, d, rule_id, v = _plan_sweep_aggregate(
+        (updates, fresh, tau, beta, valid), rule, variant)
+    if device is None:
         return ref.sweep_fused_staleness_aggregate(updates, fresh, tau, beta,
                                                    valid, rule=rule)
     w = torch.empty((s, n), dtype=torch.float32, device=device)
@@ -247,16 +285,11 @@ def fused_staleness_aggregate(updates, fresh, tau, beta, *, rule: str = "relay",
     (n,) int32; ``beta`` a float.  ``valid`` (n,) bool masks padding rows
     (default: all).  Returns (aggregate (D,), weights (n,)).  ``variant``
     as ``sweep_fused_staleness_apply``'s."""
-    rule_id = _rule(rule)
-    n, d = _dims(updates, 2)
     valid = _all_valid(valid, fresh)
-    device = _check({"updates": (updates, (n, d), torch.float32),
-                     "fresh": (fresh, (n,), torch.bool),
-                     "tau": (tau, (n,), torch.int32),
-                     "valid": (valid, (n,), torch.bool)}, 1, n, d)
-    v = _variant(variant, 1, n, d)
-    beta_t = torch.full((1,), float(beta), dtype=torch.float32, device=device)
-    if not _on_cuda(device, updates):
+    where, device, n, d, rule_id, v = _plan_cell_aggregate(
+        (updates, fresh, tau, valid), rule, variant)
+    beta_t = torch.full((1,), float(beta), dtype=torch.float32, device=where)
+    if device is None:
         return ref.fused_staleness_aggregate(updates, fresh, tau, beta_t,
                                              valid, rule=rule)
     w = torch.empty((n,), dtype=torch.float32, device=device)
@@ -271,18 +304,12 @@ def fused_staleness_apply(params, updates, fresh, tau, beta, server_lr, *,
     """One cell's server step, in place: params (D,) += server_lr * (w @ U).
     Operands and ``variant`` as ``fused_staleness_aggregate``; returns
     (params, weights (n,))."""
-    rule_id = _rule(rule)
-    n, d = _dims(updates, 2)
     valid = _all_valid(valid, fresh)
-    device = _check({"params": (params, (d,), torch.float32),
-                     "updates": (updates, (n, d), torch.float32),
-                     "fresh": (fresh, (n,), torch.bool),
-                     "tau": (tau, (n,), torch.int32),
-                     "valid": (valid, (n,), torch.bool)}, 1, n, d)
-    v = _variant(variant, 1, n, d)
-    scal = torch.empty((1, 2), dtype=torch.float32, device=device)
+    where, device, n, d, rule_id, v = _plan_cell_apply(
+        (params, updates, fresh, tau, valid), rule, variant)
+    scal = torch.empty((1, 2), dtype=torch.float32, device=where)
     scal[:, 0], scal[:, 1] = float(beta), float(server_lr)   # fills, no copy
-    if not _on_cuda(device, params, updates):
+    if device is None:
         return ref.fused_staleness_apply(params, updates, fresh, tau, valid,
                                          scal, rule=rule)
     w = torch.empty((n,), dtype=torch.float32, device=device)
@@ -294,28 +321,30 @@ def fused_staleness_apply(params, updates, fresh, tau, beta, server_lr, *,
 def deviation_partials(updates, fresh):
     """One cell's Eq. 2 partials: updates (n, D) fp32, D % 2048 == 0; fresh
     (n,) bool.  Returns (num (n,), den ()) with Lam = num / (den + EPS)."""
-    n, d = _dims(updates, 2)
-    device = _check({"updates": (updates, (n, d), torch.float32),
-                     "fresh": (fresh, (n,), torch.bool)}, 1, n, d)
-    if not _on_cuda(device, updates):
+    device, n, d = _plan_partials((updates, fresh))
+    if device is None:
         return ref.deviation_partials(updates, fresh)
     num = torch.empty((n,), dtype=torch.float32, device=device)
     den = torch.empty((), dtype=torch.float32, device=device)
-    _launch("deviation_partials", "saa_deviation_partials", device, updates,
-            fresh, num, den, *_scratch(1, n, d, device), n, d)
+    _run("deviation_partials", "saa_deviation_partials", device,
+         (updates, fresh, num, den, *_scratch(1, n, d, device)), (n, d))
     return num, den
 
 
+_WAGG = _ENTRIES["saa_weighted_aggregate"]
+
+
 def weighted_aggregate(weights, updates):
-    """weights (n,) fp32, updates (n, D) fp32, D % 2048 == 0 -> (D,)."""
-    n, d = _dims(updates, 2)
-    device = _check({"weights": (weights, (n,), torch.float32),
-                     "updates": (updates, (n, d), torch.float32)}, 1, n, d)
-    if not _on_cuda(device, updates):
+    """weights (n,) fp32, updates (n, D) fp32, D % 2048 == 0 -> (D,).  The
+    leanest wrapper: one signature, one allocation (``new_empty``, 20%
+    cheaper than ``torch.empty`` with its keywords on the card's host), one
+    C call."""
+    device, n, d = _plan_weighted((weights, updates))
+    if device is None:
         return ref.weighted_aggregate(weights, updates)
-    out = torch.empty((d,), dtype=torch.float32, device=device)
-    _launch("weighted_aggregate", "saa_weighted_aggregate", device, weights,
-            updates, out, n, d)
+    out = updates.new_empty((d,))
+    _launch.launch("weighted_aggregate", _WAGG, device.index,
+                   (weights.data_ptr(), updates.data_ptr(), out.data_ptr(), n, d))
     return out
 
 
