@@ -13,8 +13,10 @@ From the repository root, with nothing built beforehand.  It
      aggregate kernels followed by torch's ``params + lr * agg``, and the
      one-launch cluster kernel of kernels 1-4 bit for bit to their
      three-launch chain (U in shared memory, U read from L2, one to three
-     chunks a block), and ``weighted_aggregate`` bit for bit to the server
-     step's aggregate on its weights; holds the
+     chunks a block), ``deviation_partials``' cluster kernel bit for bit to
+     its two-launch chain (every SAA check case, and every chunk count from
+     1 to 16 at n from 1 to 1024), and ``weighted_aggregate`` bit for bit to
+     the server step's aggregate on its weights; holds the
      trimmed-mean kernel against its plain version (mixed trim depths and
      valid counts, +inf exclusion rows, D off the 2048 block, ties, -0.0 and
      +0.0 tied, even and odd medians, degenerate cells, n around each
@@ -41,9 +43,13 @@ From the repository root, with nothing built beforehand.  It
      ``examples/chaos_round.py`` (100 learners, 40 rounds, a colluding
      sign-flip attack) under five aggregators, each fused and flat:
      attacked saa, multi_krum and norm_median_clip launch no kernel, and
-     coord_median and trimmed_mean launch ``sweep_trimmed_aggregate``.
+     coord_median and trimmed_mean launch ``sweep_trimmed_aggregate``;
+     then ``examples/selector_zoo.py``'s selector race at its full size
+     (every registered selector fused, SAFA and Oort flat too) and
+     ``benchmarks/figures.py`` fig07's SAFA-vs-RELAY pair, each printing the
+     rows a round kernel 1 saw and where the cluster kernel read U.
      Every kernel must launch exactly once per round that aggregated on
-     its path (kernels 1-4 each time on the cluster kernel, the trimmed
+     its path (kernels 1-5 each time on the cluster kernel, the trimmed
      mean on the variant its n takes), and no other kernel may launch;
      then each campaign is timed
      warm (rounds/s) and profiled (device busy share, host spans, top GPU
@@ -54,7 +60,8 @@ From the repository root, with nothing built beforehand.  It
   5. checks the result: finite parameters of the model's width; each flat
      campaign equal to its fused twin bit for bit (records, params and
      robust counters); host records, attacker sets and robust counters
-     equal to a CPU run of every campaign; coord_median ahead of attacked
+     equal to a CPU run of every campaign (the race's and fig07's too);
+     coord_median ahead of attacked
      saa in final accuracy (the example's own pass rule); small RELAY,
      RELAY+YoGi, RELAY flat and attacked coord_median runs on the GPU
      close to the same runs on the CPU; the serve path's logits finite,
@@ -66,7 +73,9 @@ From the repository root, with nothing built beforehand.  It
      (and, for the LM kernels, the achieved TFLOP/s and share of the bound);
      for kernels 1-4 also the profiler's device time of their kernels, the
      launch floor (one empty block), both variants of the server step from
-     the main shape to the large one, and the cluster kernel's phases (a
+     the main shape to the large one, kernel 1 at fig07 SAFA's median rows
+     a round, kernel 5's two variants in turns at the main and large
+     shapes, and the cluster kernel's phases (a
      copy built with its device-clock stamps); for the trimmed mean every
      variant's time at n = 10, 16, 32, 64, 128 and 256; for
      ``weighted_aggregate`` the library call's kernel time, the chain's
@@ -133,8 +142,14 @@ VARIANT_SHAPES = {"main n=10": (1, 10, MAIN_D), "n=16": (1, 16, MAIN_D),
                   **{f"n=10 {c} chunks": (1, 10, c * 2048)
                      for c in (8, 9, 12, 16, 17, 20, 24, 32, 64)}}
 TRIM = "sweep_trimmed_aggregate"
-KERNEL_NAMES = {PARTIALS: ("saa_partials(", "saa_partials_sum("),
-                WAGG: ("saa_weighted_agg(",)}
+KERNEL_NAMES = {WAGG: ("saa_weighted_agg(",)}
+# kernel 5's GPU kernels by variant
+PARTIAL_KERNELS = {"cluster": ("saa_partials_cluster(",),
+                   "chain": ("saa_partials(", "saa_partials_sum(")}
+# kernel 5's bitwise grid: every chunk count the cluster takes by default,
+# at n around the server step's shared-memory staging edge (28 / 29 rows)
+# and up to the kernels' row limit
+PARTIAL_GRID_N = (1, 2, 10, 28, 29, 64, 1024)
 # the trimmed mean's GPU kernel by variant
 TRIM_KERNELS = {"regs": ("trimmed_regs<",), "sort": ("trimmed_sort<",),
                 "rank": ("trimmed_band_mean(",)}
@@ -210,6 +225,21 @@ REQUESTS = dict(B=4, prompt=12, gen=24)
 # the requests' profile: 4 prompt + 4 generated tokens (the profiler's cost
 # grows with its ~2,000 GPU kernels a decode step)
 PROFILE_REQUESTS = dict(prompt=4, gen=4)
+
+# examples/selector_zoo.py's race at its full size (zoo_spec, not --smoke),
+# seed 0, with the SAA kernels on; flat twins of these two
+ZOO_FLAT = ("safa", "oort")
+# benchmarks/figures.py fig07's label_uniform pair: SAFA against RELAY under
+# DL, dynamic availability, a 688 Mbit model, stale rows up to 5 rounds old
+FIG07 = dict(n_learners=100, rounds=60, eval_every=15, seed=0,
+             mapping="label_uniform", setting="DL", saa=True,
+             staleness_threshold=5, deadline=100.0, model_mbits=688.0,
+             use_agg_kernel=True)
+FIG07_CELLS = {"fig07 SAFA": dict(FIG07, selector="safa", safa_target_ratio=0.10),
+               "fig07 RELAY": dict(FIG07, selector="priority", apt=True)}
+# the H100's opt-in shared memory a block (232,448 bytes) less saa_cluster's
+# static shared memory: whether its U stays resident
+CLUSTER_SMEM = 232_448 - 48
 
 DEFENSES = {               # campaign -> (aggregator settings, its kernel)
     "saa (attacked)": ({}, None),
@@ -417,7 +447,9 @@ def check_family(torch, ops, ref, checks, s, n, d, rule, case, gen,
         checks.same[ops.variant(s, n, d)] += 1
     if not rule_free:
         return
-    # 5 and 6: no scaling rule; the partials and a GEMV on given weights
+    # 5 and 6: no scaling rule; the partials (the cluster kernel == its
+    # chain, bitwise) and a GEMV on given weights
+    partials_bitwise(torch, ops, checks, u[0], fresh[0], what)
     num, den = ops.deviation_partials(u[0], fresh[0])
     num_r, den_r = ref.deviation_partials(u[0], fresh[0])
     o6 = ops.weighted_aggregate(w2_r[0], u[0])
@@ -433,6 +465,47 @@ def bits_equal(torch, a, b) -> bool:
     """Equal bit for bit (-0.0 and +0.0 differ), fp32."""
     return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
                                               b.contiguous().view(torch.int32))
+
+
+def partials_bitwise(torch, ops, checks, u, fresh, what):
+    """Kernel 5's cluster kernel == its two-launch chain, bit for bit
+    (num and den as int32 views), on one cell."""
+    by = {v: ops.deviation_partials(u, fresh, variant=v) for v in ops.VARIANTS}
+    torch.cuda.synchronize()
+    for out, a, b in zip(("num", "den"), by["cluster"], by["chain"]):
+        if not bits_equal(torch, a, b):
+            fail(f"{PARTIALS}: cluster kernel != chain, bitwise, in {out} at {what}")
+    checks.bits[f"{PARTIALS} cluster == chain"] += 1
+
+
+def check_partials_grid(torch, ops, ref, checks, gen):
+    """Kernel 5 at every chunk count the cluster takes by default (1 to
+    ``CLUSTER_MAX_CHUNKS``) and every n of ``PARTIAL_GRID_N``: the cluster
+    kernel == the chain bitwise, the default variant against the plain
+    version."""
+    for n in PARTIAL_GRID_N:
+        for chunks in range(1, ops.CLUSTER_MAX_CHUNKS + 1):
+            d = chunks * ops.D_BLK
+            _, u, fresh, *_ = saa_inputs(torch, 1, n, d, "mixed", gen)
+            what = f"n={n} D={d} ({chunks} chunks)"
+            partials_bitwise(torch, ops, checks, u[0], fresh[0], what)
+            num, den = ops.deviation_partials(u[0], fresh[0])
+            num_r, den_r = ref.deviation_partials(u[0], fresh[0])
+            torch.cuda.synchronize()
+            checks.close(PARTIALS, num, num_r, what)
+            checks.close(PARTIALS, den, den_r, what)
+            checks.count(PARTIALS)
+
+
+def cluster_resident(n, d) -> bool:
+    """Whether ``saa_cluster`` stages U in shared memory at (n, D): its
+    shared-memory layout (``cluster_floats`` in the CUDA source) within the
+    block's budget."""
+    nch = d // 2048
+    per = -(-nch // 8)
+    floats = (per * n * 2048 + per * (n + 1) + n * 8 + 2 * n + nch * (n + 1)
+              + n + (n + 1) // 2)
+    return floats * 4 <= CLUSTER_SMEM
 
 
 def trimmed_inputs(torch, n, d, case, gen):
@@ -783,10 +856,24 @@ def time_kernel(torch, ops, ref, kernel, s, n, d, iters, gen) -> dict:
            "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None, "library_device_ms": None}
-    if kernel in FUSED:
+    if kernel in FUSED or kernel == PARTIALS:
         res["variant"] = ops.variant(1 if single else s, n, d)
-    res["kernel_ms"] = kernel_ms(torch, k, VARIANT_KERNELS[res["variant"]]
-                                 if kernel in FUSED else KERNEL_NAMES[kernel])
+    res["kernel_ms"] = kernel_ms(
+        torch, k, VARIANT_KERNELS[res["variant"]] if kernel in FUSED else
+        PARTIAL_KERNELS[res["variant"]] if kernel == PARTIALS else
+        KERNEL_NAMES[kernel])
+    if kernel == PARTIALS:       # both variants forced, events in turns
+        _, u, fresh, *_ = saa_inputs(torch, 1, n, d, "mixed", gen)
+        fns = {v: (lambda v=v: ops.deviation_partials(u[0], fresh[0], variant=v))
+               for v in ops.VARIANTS}
+        ev = {v: [] for v in ops.VARIANTS}
+        for v in ("cluster", "chain", "chain", "cluster"):
+            ev[v].append(time_ms(torch, fns[v], iters))
+        res["by_variant"] = {v: {"ms": min(ev[v]), "ms_runs": ev[v],
+                                 "device_ms": graph_ms(torch, fns[v]),
+                                 "kernel_ms": kernel_ms(torch, fns[v],
+                                                        PARTIAL_KERNELS[v])}
+                             for v in ops.VARIANTS}
     if lib is not None:
         res.update(library_ms=min(l1, l2), library_ms_runs=[l1, l2],
                    ms_runs=[k1, k2, k3, k4], ms=min(k1, k2, k3, k4),
@@ -1418,6 +1505,8 @@ def main():
     from repro_torch.kernels.trimmed_agg import ops as trim_ops
     from repro_torch.kernels.trimmed_agg import ref as trim_ref
     from repro_torch.quickstart import CAMPAIGNS, COMMON, table
+    from repro_torch.selection import SELECTOR_TABLE
+    from repro_torch.selector_zoo import text_table, zoo_base, zoo_cells
     from repro_torch.sim import SimConfig, Simulator
     from repro_torch.sim.learner import fp32_matmuls
 
@@ -1476,6 +1565,7 @@ def main():
     r_max = trim_ops.REGS_MAX_N   # n around the regs/sort threshold too
     check_trim_grid(sorted({*TRIM_GRID_N, r_max - 1, r_max, r_max + 1}), TRIM_D)
     check_trim_grid(TRIM_EDGE_N, TRIM_D[:1])
+    check_partials_grid(torch, saa_ops, saa_ref, checks, gen)
     for k in REPLACES:
         print(f"{k} == plain version in {checks.n[k]} checks "
               f"(max abs err {checks.err[k]:.3g}, relative {checks.rel[k]:.3g})")
@@ -1490,6 +1580,11 @@ def main():
     print(f"cluster kernel == chain, bitwise (weights, aggregates, params of "
           f"kernels 1-4), in {sum(checks.same.values())} checks "
           f"({dict(checks.same)} by the variant the shape takes)")
+    print(f"{PARTIALS}: cluster kernel == chain, bitwise (num, den as int32), in "
+          f"{checks.bits[f'{PARTIALS} cluster == chain']} checks (chunks 1-"
+          f"{saa_ops.CLUSTER_MAX_CHUNKS} at n in {PARTIAL_GRID_N}, and every SAA "
+          f"check case); the wrapper takes the cluster up to "
+          f"{saa_ops.CLUSTER_MAX_CHUNKS} chunks")
     lap("SAA and trimmed-mean kernel checks")
     report["swa_checks"] = check_lm_kernels(torch, checks, gen)
     lap("LM kernel checks")
@@ -1509,6 +1604,17 @@ def main():
     for name, (kw, kernel) in DEFENSES.items():   # None: launches no kernel
         runs[name] = (dict(RACE, **kw), kernel)
         runs[f"{name} flat"] = (dict(RACE, **kw, fused_rounds=False), kernel)
+    # the selector race (every registered selector, two flat twins) and
+    # fig07's SAFA-vs-RELAY pair: kernel 1 fused, kernel 3 flat
+    race = {}
+    for sel_name in SELECTOR_TABLE:
+        zoo_kw = dict(zoo_base(False), selector=sel_name, seed=0)
+        race[f"zoo {sel_name}"] = (zoo_kw, APPLY)
+        if sel_name in ZOO_FLAT:
+            race[f"zoo {sel_name} flat"] = (dict(zoo_kw, fused_rounds=False),
+                                            CELL_AGG)
+    race.update({name: (kw, APPLY) for name, kw in FIG07_CELLS.items()})
+    runs.update(race)
     gpu, sims, launches = {}, {}, Counter()
     report["paths"] = {}
     for name, (kw, kernel) in runs.items():
@@ -1548,6 +1654,23 @@ def main():
         summ = gpu[name].summary()
         print(f"{name:20s} accuracy {summ['final_accuracy']:.3f}  rejected "
               f"{summ['robust_rejected']}  trimmed {summ['robust_trimmed']}")
+    zoo = zoo_cells(list(SELECTOR_TABLE), False, (0,))
+    print("--- selector race (examples/selector_zoo.py, full size, seed 0) ---")
+    print(text_table(zoo, [gpu[f"zoo {s}"].summary() for _, s, _, _ in zoo]))
+    # the rows a round kernel 1 (3 flat) saw, and where the cluster read U
+    report["race"] = {}
+    for name in race:
+        rows = sorted(r.n_fresh + r.n_stale for r in gpu[name].records
+                      if r.n_fresh + r.n_stale > 0)
+        resident = sum(cluster_resident(n_, MAIN_D) for n_ in rows)
+        report["race"][name] = {
+            "rows_min": rows[0], "rows_median": rows[len(rows) // 2],
+            "rows_max": rows[-1], "resident_rounds": resident,
+            "l2_rounds": len(rows) - resident}
+        print(f"{name}: rows a round min {rows[0]}, median "
+              f"{rows[len(rows) // 2]}, max {rows[-1]}; the cluster kernel held U "
+              f"in shared memory in {resident} rounds, read it from L2 in "
+              f"{len(rows) - resident}")
 
     # the host entry points' A/B path over the flat RELAY campaign's rounds
     cfg = SimConfig(**runs["RELAY flat"][0])
@@ -1580,8 +1703,10 @@ def main():
         ab_err = max(ab_err, (agg_ab - agg).abs().max().item())
     got = dict(LAUNCHES)
     if not rounds or got != {k: len(rounds) for k in (
-            CELL_APPLY, saa_ops.launch_key(CELL_APPLY, "cluster"), PARTIALS, WAGG)}:
-        fail(f"A/B path: launches {got} over {len(rounds)} rounds")
+            CELL_APPLY, saa_ops.launch_key(CELL_APPLY, "cluster"), PARTIALS,
+            saa_ops.launch_key(PARTIALS, "cluster"), WAGG)}:
+        fail(f"A/B path: launches {got} over {len(rounds)} rounds (kernels 4 "
+             f"and 5 each on its cluster kernel)")
     launches.update(got)
     report["paths"]["A/B host entries"] = {"launches": got,
                                            "aggregated_rounds": len(rounds),
@@ -1591,15 +1716,20 @@ def main():
           f"one-cell apply equals the flat step bitwise")
 
     # each kernel against its plain version at every n the paths ran it at
+    # (the race's n too; the main shapes' n from the other paths)
     ns = {}                          # kernel -> the n it ran at, counted
+    race_ns = set()
     for name, (_, kernel) in runs.items():
         if kernel is not None:
-            ns.setdefault(kernel, Counter()).update(
-                r.n_fresh + r.n_stale for r in gpu[name].records
-                if r.n_fresh + r.n_stale > 0)
+            n_agg = [r.n_fresh + r.n_stale for r in gpu[name].records
+                     if r.n_fresh + r.n_stale > 0]
+            if name in race:
+                race_ns.update(n_agg)
+            else:
+                ns.setdefault(kernel, Counter()).update(n_agg)
     for kernel in (CELL_APPLY, PARTIALS, WAGG):
         ns[kernel] = Counter(u.shape[0] for u, *_ in rounds)
-    path_ns = sorted(set().union(*(ns[k] for k in SAA_REPLACES))
+    path_ns = sorted(set().union(*(ns[k] for k in SAA_REPLACES), race_ns)
                      - {n for _, n, _ in grid})
     before = sum(checks.n.values())
     check_grid([(1, n, MAIN_D) for n in path_ns])
@@ -1641,6 +1771,11 @@ def main():
         for kname, ms in prof["top_kernels_ms"].items():
             print(f"  {ms:9.3f} ms  {kname[:90]}")
 
+    print("--- fig07 SAFA vs RELAY (label_uniform, DL, 688 Mbit) ---")
+    for name in FIG07_CELLS:
+        c = report["campaigns"][name]
+        print(f"{name}: resource_used {c['resource_used']:.1f} s, waste_fraction "
+              f"{c['waste_fraction']:.4f}, final accuracy {c['final_accuracy']:.4f}")
     lap("FL campaigns timed and profiled")
     # --- 4. the result is right ----------------------------------------
     d_model = sims["Random"].flat_params.numel()
@@ -1724,6 +1859,10 @@ def main():
             "main": time_kernel(torch, saa_ops, saa_ref, kernel, 1, n_main,
                                 MAIN_D, 500, gen),
             "large": time_kernel(torch, saa_ops, saa_ref, kernel, *LARGE, 50, gen)}
+    # kernel 1 at the median rows a round of fig07's SAFA cell
+    n_safa = report["race"]["fig07 SAFA"]["rows_median"]
+    times[APPLY][f"fig07 SAFA n={n_safa}"] = time_kernel(
+        torch, saa_ops, saa_ref, APPLY, 1, n_safa, MAIN_D, 500, gen)
     times[TRIM] = {
         "main": time_trimmed(torch, trim_ops, trim_ref,
                              ns[TRIM].most_common(1)[0][0], TRIM_D[-1], 500,
@@ -1747,6 +1886,11 @@ def main():
             print(f"{kernel} {label} {t['shape']}: kernel {t['ms']:.4f} ms "
                   f"(device {t['device_ms']:.4f}){var}{plain}{lib}, bound "
                   f"{t['bound_ms']:.6f} ms ({t['bound_by']}){old}")
+            for v, tv in t.get("by_variant", {}).items():
+                print(f"  {kernel} {label} forced {v}: {tv['ms']:.4f} ms events "
+                      f"(runs {', '.join(f'{x:.4f}' for x in tv['ms_runs'])}), device "
+                      f"{tv['device_ms']:.4f}, its kernels {tv['kernel_ms']:.5f} by the "
+                      f"profiler")
             for v, tv in t.get("variants", {}).items():
                 print(f"  {kernel} {label} variant {v}: {tv['ms']:.4f} ms events (the "
                       f"default's in turn {min(tv['default_ms_runs']):.4f}), device "
@@ -1807,6 +1951,7 @@ def main():
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in report["phase_s"].items()))
     report.update(times=times, launches=dict(launches),
                   kernel_checks=dict(checks.n), cluster_equals_chain=dict(checks.same),
+                  bitwise_checks=dict(checks.bits),
                   max_abs_err=dict(checks.err),
                   max_rel_err=dict(checks.rel),
                   main_path_n={k: dict(v) for k, v in ns.items()})

@@ -2,7 +2,8 @@
 
 Selectors (:mod:`repro_torch.selection`) and learner models
 (:mod:`repro_torch.learners`) each keep a :class:`StrategyTable` of frozen
-spec dataclasses, one spec registered per file at import time.
+spec dataclasses, one spec registered per file at import time;
+:func:`describe_table` renders one as a listing.
 """
 from __future__ import annotations
 
@@ -91,3 +92,20 @@ class StrategyTable:
         for key, value in self.normalize_params(name, params):
             values[key] = value
         return values
+
+
+def describe_table(title_row: Sequence[str],
+                   rows: Sequence[Sequence[str]],
+                   footnote: str = "") -> str:
+    """A left-justified column table: every column but the last (the doc
+    string, left ragged) padded to its widest cell, then ``footnote`` as a
+    trailing paragraph."""
+    table = [tuple(title_row)] + [tuple(r) for r in rows]
+    ncol = len(table[0])
+    widths = [max(len(r[c]) for r in table) for c in range(ncol - 1)]
+    lines = ["  ".join(v.ljust(w) for v, w in zip(r[:-1], widths))
+             + f"  {r[-1]}" for r in table]
+    text = "\n".join(lines)
+    if footnote:
+        text += "\n\n" + footnote
+    return text

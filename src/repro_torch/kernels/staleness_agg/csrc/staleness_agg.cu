@@ -24,8 +24,12 @@
 //   saa_sweep_fused_apply        the same two functions as a chain of three
 //   saa_sweep_fused_aggregate    launches: partials -> weights -> apply (the
 //                                server step at large D)
-//   saa_deviation_partials       partials -> partials_sum          (Pallas
+//   saa_cluster_deviation_partials
+//                                one launch: partials, summed through
+//                                distributed shared memory (Pallas
 //                                deviation_partials)
+//   saa_deviation_partials       the same as a chain: partials ->
+//                                partials_sum (at large D)
 //   saa_weighted_aggregate       aggregate on given weights, its own
 //                                narrow-tiled kernel (Pallas
 //                                weighted_aggregate)
@@ -64,6 +68,18 @@
 // Past 16 chunks (three a block) one cluster of at most 8 SMs streams U
 // more slowly than the chain's nchunks blocks, so the wrapper takes the
 // chain there (ops.variant).
+//
+// The partials cluster kernel (saa_partials_cluster, for the Pallas
+// deviation_partials) is that kernel's first phase with nothing after it:
+// grid (C, 1), cluster (C, 1, 1), the same chunk split; each block streams
+// its chunks' rows from device memory once (U is read once, so it is not
+// staged) and keeps their partials in its shared memory; after a cluster
+// barrier rank 0 fetches every chunk's partials through distributed shared
+// memory and sums them in chunk order with saa_partials_sum's code, then
+// writes num (n,) and den (); a last cluster barrier keeps each block's
+// partials alive until rank 0 has read them.  One launch, no scratch in
+// device memory, no atomics; the chain (saa_partials, saa_partials_sum)
+// stays past 16 chunks, as for the server step.
 //
 // The chain: 1. saa_partials, grid (D / 2048, S), writes each chunk's
 // partials to scratch (S, nchunks, n) / (S, nchunks); 2. saa_weights, grid
@@ -702,6 +718,61 @@ saa_cluster(float* __restrict__ params, const float* __restrict__ u,
   SAA_STAMP(8);
 }
 
+// Shared memory of one block of saa_partials_cluster, in floats: [num
+// partials: K n][den partials: K][row_red: n kWarps][all chunks' partials:
+// nchunks (n + 1), read by rank 0 only].
+__host__ __device__ __forceinline__ size_t partials_cluster_floats(int per,
+                                                                   int nchunks,
+                                                                   int n) {
+  return (size_t)per * (n + 1) + (size_t)n * kWarps + (size_t)nchunks * (n + 1);
+}
+
+// One cell's deviation partials in one cluster (grid (C, 1), cluster (C, 1,
+// 1)); block rank r owns chunks [r K, min(r K + K, nchunks)).  Each chunk's
+// partials are chunk_partials' (as saa_partials'); rank 0 sums them in
+// chunk order with sum_partials (as saa_partials_sum), so num and den equal
+// the chain's bit for bit.
+__global__ void __launch_bounds__(kThreads)
+saa_partials_cluster(const float* __restrict__ u,
+                     const uint8_t* __restrict__ fresh, float* __restrict__ num,
+                     float* __restrict__ den, int n, int d, int per) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float red[kWarps];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nchunks = d / kCols;
+  const int c0 = rank * per, c1 = min(c0 + per, nchunks);
+  float* part_num = sm;
+  float* part_den = part_num + (size_t)per * n;
+  float* row_red = part_den + per;
+  float* all = row_red + (size_t)n * kWarps;
+
+  const float nf = fresh_count(fresh, n);
+  for (int c = c0; c < c1; ++c) {
+    const float dn = chunk_partials(u + (size_t)c * kCols, d, fresh, n, nf,
+                                    row_red, red, part_num + (size_t)(c - c0) * n);
+    if (threadIdx.x == 0) part_den[c - c0] = dn;
+  }
+  cluster.sync();                  // every chunk's partials are in place
+  if (rank == 0)                   // fetched at once from their owners
+    for (int k = threadIdx.x; k < nchunks * (n + 1); k += kThreads) {
+      const int c = k / (n + 1), i = k % (n + 1);
+      const int at = c % per;
+      all[k] = i < n ? cluster.map_shared_rank(part_num, c / per)[(size_t)at * n + i]
+                     : cluster.map_shared_rank(part_den, c / per)[at];
+    }
+  cluster_arrive();                // rank 0 is done with the others' memory
+  if (rank == 0) {
+    __syncthreads();               // every chunk's partials are in all
+    const float t = sum_partials<1>(
+        [=](int c) { return all[(size_t)c * (n + 1) + n]; },
+        [=](int c, int i) { return all[(size_t)c * (n + 1) + i]; }, n, nchunks,
+        num, red);
+    if (threadIdx.x == 0) *den = t;
+  }
+  cluster_wait();                  // no block leaves while rank 0 reads it
+}
+
 __global__ void saa_empty_kernel() {}
 
 #define SAA_RETURN_IF_FAILED()                         \
@@ -726,10 +797,10 @@ int launch_weights(const float* u, const uint8_t* fresh, const int* tau,
   return 0;
 }
 
-// Per device: the shared memory a block of saa_cluster may take (set once
-// as its limit), and per (cluster size, shared memory) whether such a
-// cluster can be scheduled at all (cudaOccupancyMaxActiveClusters, asked
-// once per configuration).
+// Per cluster kernel and device: the shared memory a block may take (set
+// once as the kernel's limit), and per (cluster size, shared memory)
+// whether such a cluster can be scheduled at all
+// (cudaOccupancyMaxActiveClusters, asked once per configuration).
 constexpr int kMaxDevices = 64;
 constexpr int kMaxConfigs = 64;
 struct ClusterConfig { int csize; size_t smem; bool ok; };
@@ -740,21 +811,20 @@ struct DeviceState {
   int nconfigs = 0;
   ClusterConfig configs[kMaxConfigs];
 };
-DeviceState g_devices[kMaxDevices];
+enum ClusterKernel { kServerStep = 0, kPartials = 1 };
+DeviceState g_devices[2][kMaxDevices];
 std::mutex g_mutex;
 
-int cluster_budget(int dev, size_t* budget) {
-  DeviceState& ds = g_devices[dev];
+int cluster_budget(const void* func, DeviceState& ds, int dev, size_t* budget) {
   if (!ds.ready) {
     int optin = 0;
     cudaFuncAttributes fa;
     cudaError_t e = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, saa_cluster);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, func);
     if (e == cudaSuccess) {
       ds.budget = (size_t)optin - fa.sharedSizeBytes;
-      e = cudaFuncSetAttribute(saa_cluster,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+      e = cudaFuncSetAttribute(func, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)ds.budget);
     }
     ds.err = (int)e;
@@ -764,16 +834,15 @@ int cluster_budget(int dev, size_t* budget) {
   return ds.err;
 }
 
-int cluster_ok(int dev, const cudaLaunchConfig_t& cfg, int csize, bool* ok) {
-  DeviceState& ds = g_devices[dev];
+int cluster_ok(const void* func, DeviceState& ds, const cudaLaunchConfig_t& cfg,
+               int csize, bool* ok) {
   for (int k = 0; k < ds.nconfigs; ++k)
     if (ds.configs[k].csize == csize && ds.configs[k].smem == cfg.dynamicSmemBytes) {
       *ok = ds.configs[k].ok;
       return 0;
     }
   int clusters = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(
-      &clusters, (void*)saa_cluster, &cfg);
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, func, &cfg);
   if (e != cudaSuccess) return (int)e;
   *ok = clusters > 0;
   if (ds.nconfigs < kMaxConfigs)
@@ -781,48 +850,87 @@ int cluster_ok(int dev, const cudaLaunchConfig_t& cfg, int csize, bool* ok) {
   return 0;
 }
 
+// The launch configuration of a cluster kernel over nchunks chunks of S
+// cells: K = ceil(nchunks / 8) chunks a block, C = ceil(nchunks / K) blocks
+// a cluster.  Returns the current device (or a CUDA error, negated, below 0).
+int cluster_config(int nchunks, int s, cudaStream_t st, cudaLaunchConfig_t* cfg,
+                   cudaLaunchAttribute* attr, int* per) {
+  *per = (nchunks + kMaxCluster - 1) / kMaxCluster;
+  const int csize = (nchunks + *per - 1) / *per;
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (dev >= kMaxDevices) return -(int)cudaErrorInvalidDevice;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = csize;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = {};
+  cfg->gridDim = dim3(csize, s);
+  cfg->blockDim = dim3(kThreads);
+  cfg->stream = st;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return dev;
+}
+
 int launch_cluster(float* params, const float* u, const uint8_t* fresh,
                    const int* tau, const uint8_t* valid, const float* beta,
                    int beta_stride, const float* scal, float* w_out,
                    float* agg, int s, int n, int d, int rule, cudaStream_t st) {
   const int nchunks = d / kCols;
-  const int per = (nchunks + kMaxCluster - 1) / kMaxCluster;
-  const int csize = (nchunks + per - 1) / per;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-
-  cudaLaunchConfig_t cfg = {};
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = csize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(csize, s);
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  int per = 0;
+  const int dev = cluster_config(nchunks, s, st, &cfg, attr, &per);
+  if (dev < 0) return -dev;
+  const void* func = (const void*)saa_cluster;
+  DeviceState& ds = g_devices[kServerStep][dev];
   bool ok = false;
   int resident = 0;
   {
     std::lock_guard<std::mutex> lock(g_mutex);
     size_t budget = 0;
-    int err = cluster_budget(dev, &budget);
+    int err = cluster_budget(func, ds, dev, &budget);
     if (err) return err;
     const size_t full = cluster_floats(per, nchunks, n, true) * sizeof(float);
     const size_t lean = cluster_floats(per, nchunks, n, false) * sizeof(float);
     if (lean > budget) return kErrSharedMem;
     resident = full <= budget;
     cfg.dynamicSmemBytes = resident ? full : lean;
-    err = cluster_ok(dev, cfg, csize, &ok);
+    err = cluster_ok(func, ds, cfg, attr[0].val.clusterDim.x, &ok);
     if (err) return err;
   }
   if (!ok) return kErrNoCluster;
   return (int)cudaLaunchKernelEx(&cfg, saa_cluster, params, u, fresh, tau,
                                  valid, beta, beta_stride, scal, w_out, agg,
                                  n, d, per, resident, rule);
+}
+
+int launch_partials_cluster(const float* u, const uint8_t* fresh, float* num,
+                            float* den, int n, int d, cudaStream_t st) {
+  const int nchunks = d / kCols;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int per = 0;
+  const int dev = cluster_config(nchunks, 1, st, &cfg, attr, &per);
+  if (dev < 0) return -dev;
+  const void* func = (const void*)saa_partials_cluster;
+  DeviceState& ds = g_devices[kPartials][dev];
+  bool ok = false;
+  {
+    std::lock_guard<std::mutex> lock(g_mutex);
+    size_t budget = 0;
+    int err = cluster_budget(func, ds, dev, &budget);
+    if (err) return err;
+    cfg.dynamicSmemBytes = partials_cluster_floats(per, nchunks, n) * sizeof(float);
+    if (cfg.dynamicSmemBytes > budget) return kErrSharedMem;
+    err = cluster_ok(func, ds, cfg, attr[0].val.clusterDim.x, &ok);
+    if (err) return err;
+  }
+  if (!ok) return kErrNoCluster;
+  return (int)cudaLaunchKernelEx(&cfg, saa_partials_cluster, u, fresh, num, den,
+                                 n, d, per);
 }
 
 }  // namespace
@@ -890,7 +998,16 @@ extern "C" int saa_sweep_fused_aggregate(const float* u, const uint8_t* fresh,
   return (int)cudaGetLastError();
 }
 
-// One cell: num_out (n,) and den_out () of U (n, d).
+// One cell: num_out (n,) and den_out () of U (n, d).  One launch.
+extern "C" int saa_cluster_deviation_partials(const float* u,
+                                              const uint8_t* fresh,
+                                              float* num_out, float* den_out,
+                                              int n, int d, void* stream) {
+  return launch_partials_cluster(u, fresh, num_out, den_out, n, d,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// As saa_cluster_deviation_partials, as a chain of two launches.
 extern "C" int saa_deviation_partials(const float* u, const uint8_t* fresh,
                                       float* num_out, float* den_out,
                                       float* num_part, float* den_part, int n,

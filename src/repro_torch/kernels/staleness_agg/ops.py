@@ -10,11 +10,12 @@ current stream when every tensor lies on one CUDA device, and counts the
 launch in ``LAUNCHES`` under its own name.  Anything else raises: a CUDA
 tensor never falls back to the plain version.
 
-The four fused server-step wrappers (``FUSED``) run one of two variants of
-one function, equal bit for bit: the one-launch thread-block-cluster
-kernel, or the chain of three launches.  ``variant(s, n, d)`` picks by
-shape (the cluster up to ``CLUSTER_MAX_CHUNKS`` 2048-column chunks, the
-chain beyond); ``variant=`` forces one.  Each launch also counts under
+The four fused server-step wrappers (``FUSED``) and ``deviation_partials``
+run one of two variants of one function, equal bit for bit: the one-launch
+thread-block-cluster kernel, or the chain of launches (three for the
+server step, two for the partials).  ``variant(s, n, d)`` picks by shape
+(the cluster up to ``CLUSTER_MAX_CHUNKS`` 2048-column chunks, the chain
+beyond); ``variant=`` forces one.  Each launch also counts under
 ``<name>:cluster`` or ``<name>:chain``.
 
 Every wrapper checks its operands through ``repro_torch.kernels._launch``:
@@ -43,6 +44,7 @@ NAME = "sweep_fused_staleness_apply"
 NAMES = (NAME, "sweep_fused_staleness_aggregate", "fused_staleness_aggregate",
          "fused_staleness_apply", "deviation_partials", "weighted_aggregate")
 FUSED = NAMES[:4]         # the server-step wrappers, each with two variants
+PARTIALS = NAMES[4]       # two variants too
 VARIANTS = ("cluster", "chain")
 # The most chunks the cluster variant takes by default: one cluster of at
 # most 8 SMs beats the chain's three launches while U is small, and loses
@@ -57,6 +59,7 @@ _ENTRIES = {name: CEntry("staleness_agg", name, n_ptr, n_int)
                 "saa_cluster_fused_aggregate": (7, 4),
                 "saa_sweep_fused_apply": (9, 4),
                 "saa_sweep_fused_aggregate": (9, 4),
+                "saa_cluster_deviation_partials": (4, 2),
                 "saa_deviation_partials": (6, 2),
                 "saa_weighted_aggregate": (3, 2)}.items()}
 launch_key = _launch.launch_key      # "<kernel>:<variant>", as LAUNCHES counts it
@@ -216,11 +219,12 @@ def _plan_cell_apply(params, updates, fresh, tau, valid, rule, forced):
 
 
 @Checked
-def _plan_partials(updates, fresh):
+def _plan_partials(updates, fresh, forced):
     n, d = _dims(updates, 2)
     device = _check({"updates": (updates, (n, d), torch.float32),
                      "fresh": (fresh, (n,), torch.bool)}, 1, n, d)
-    return _cuda_device(device, updates), n, d
+    v = _variant(forced, 1, n, d)
+    return _cuda_device(device, updates), n, d, v
 
 
 @Checked
@@ -318,16 +322,22 @@ def fused_staleness_apply(params, updates, fresh, tau, beta, server_lr, *,
     return params, w
 
 
-def deviation_partials(updates, fresh):
+def deviation_partials(updates, fresh, *, variant=None):
     """One cell's Eq. 2 partials: updates (n, D) fp32, D % 2048 == 0; fresh
-    (n,) bool.  Returns (num (n,), den ()) with Lam = num / (den + EPS)."""
-    device, n, d = _plan_partials((updates, fresh))
+    (n,) bool.  Returns (num (n,), den ()) with Lam = num / (den + EPS).
+    ``variant`` as ``sweep_fused_staleness_apply``'s: the cluster kernel
+    allocates only its two outputs, the chain its partials scratch too."""
+    device, n, d, v = _plan_partials((updates, fresh), variant)
     if device is None:
         return ref.deviation_partials(updates, fresh)
-    num = torch.empty((n,), dtype=torch.float32, device=device)
-    den = torch.empty((), dtype=torch.float32, device=device)
-    _run("deviation_partials", "saa_deviation_partials", device,
-         (updates, fresh, num, den, *_scratch(1, n, d, device)), (n, d))
+    num, den = updates.new_empty((n,)), updates.new_empty(())
+    if v == "cluster":
+        _run(PARTIALS, "saa_cluster_deviation_partials", device,
+             (updates, fresh, num, den), (n, d), tag=v)
+    else:
+        _run(PARTIALS, "saa_deviation_partials", device,
+             (updates, fresh, num, den, *_scratch(1, n, d, device)), (n, d),
+             tag=v)
     return num, den
 
 

@@ -3,9 +3,21 @@
 
 A selector consumes the engine's ``np.random.Generator`` stream and mutates
 its own plain-attribute state; the draw order is part of the contract that
-keeps the port's host decisions equal to the reference's.  The reference's
-``needs_feedback`` / ``select_all`` spec flags come with the selectors that
-need them (oort, ucb, contribution, safa); neither slice selector does.
+keeps the port's host decisions equal to the reference's.
+
+Two spec flags shape the round around a selector:
+
+``needs_feedback``
+    The selector reads the per-row statistical utility of each arrival
+    (``update_feedback(stat_util=...)``, from the training's l2 loss
+    stats).  The fused pipeline then copies the round's stats to the host
+    once, after the device round, and applies the feedback there (oort,
+    ucb, contribution).  Feedback-free selectors fetch nothing.
+
+``select_all``
+    SAFA's round: the cohort is every available learner and the round ends
+    when ``safa_target_ratio`` of it has reported, capped by the deadline;
+    every arrival by then is fresh (the engine's ``_schedule_round``).
 """
 from __future__ import annotations
 
@@ -59,10 +71,13 @@ class BuildContext:
 
 @dataclasses.dataclass(frozen=True)
 class SelectorSpec:
-    """One registered selection strategy (a row of ``SELECTOR_TABLE``)."""
+    """One registered selection strategy (a row of ``SELECTOR_TABLE``);
+    ``needs_feedback`` and ``select_all`` as the module docstring says."""
     name: str
     factory: Callable[[Dict, BuildContext], Selector]
     doc: str = ""
+    needs_feedback: bool = False
+    select_all: bool = False
     knobs: tuple = ()                 # Knob(...) entries
 
     def build(self, cfg, substrate=None, durations=None) -> Selector:

@@ -2,7 +2,11 @@
 
 Supports the paper's settings: OC (over-commit selection by 30%, wait for
 the first N_t updates) and DL (fixed reporting deadline).  RELAY (IPS + APT
-+ SAA with Eq. 2 weights) and random selection + FedAvg are expressible.
++ SAA with Eq. 2 weights), random selection + FedAvg, and the reference's
+other selectors (``repro_torch.selection``: oort, safa, flips, ucb,
+contribution) are expressible; SAFA's round (every available learner
+trains, the round ends at ``safa_target_ratio`` of its arrivals, capped by
+the deadline) is the scheduler's ``select_all`` branch.
 Simulated time is decoupled from wall-clock: device durations come from
 the heterogeneity profiles, availability from the trace substrate.
 
@@ -58,7 +62,7 @@ class SimConfig:
     mapping: str = "uniform"          # uniform | fedscale | label_{balanced,uniform,zipf}
     n_learners: int = 200
     rounds: int = 200
-    selector: str = "random"          # random | priority in this slice
+    selector: str = "random"          # random | oort | priority | safa | flips | ucb | contribution
     selector_params: tuple = ()
     server_opt: str = "fedavg"        # fedavg | yogi
     aggregator: str = "saa"           # robust aggregator (repro_torch.robust)
@@ -137,8 +141,6 @@ _UNPORTED = (
     (lambda c: bool(c.shard_participants), "participant sharding", 14),
     (lambda c: c.benchmark in part.TOKEN_BENCHMARKS, "token benchmarks", 2),
     (lambda c: c.model not in MODEL_TABLE, "learner models other than mlp", 13),
-    (lambda c: c.selector not in SELECTOR_TABLE,
-     "selectors other than random and priority", 6),
 )
 
 
@@ -318,6 +320,7 @@ class Simulator:
         self.trace_bank = substrate.trace_bank
         self.fbank = ForecasterBank(cfg.n_learners)
         self._warmup_forecasters()
+        self._sel_spec = SELECTOR_TABLE[cfg.selector]
         self.selector = build_selector(cfg, substrate=substrate,
                                        durations=self.durations)
         self.apt = AdaptiveParticipantTarget(n0=cfg.n_target) if cfg.apt else None
@@ -440,7 +443,14 @@ class Simulator:
                 self.busy_until[lid] = t_now + float(durs[i])
         arrivals.sort()
 
-        if cfg.setting == "OC":
+        if self._sel_spec.select_all:
+            # SAFA: the round ends at the ceil(ratio * cohort)-th arrival,
+            # capped by the deadline
+            need = max(1, int(np.ceil(cfg.safa_target_ratio * len(chosen))))
+            t_end = (arrivals[need - 1][0] if len(arrivals) >= need
+                     else t_now + cfg.deadline)
+            t_end = min(t_end, t_now + cfg.deadline)
+        elif cfg.setting == "OC":
             t_end = (arrivals[n_t - 1][0] if len(arrivals) >= n_t
                      else (arrivals[-1][0] if arrivals else t_now + cfg.deadline))
         else:  # DL
@@ -450,7 +460,8 @@ class Simulator:
         for (arr, i) in arrivals:
             lid = chosen[i]
             feedback.append((lid, i, durs[i]))
-            if arr <= t_end and (cfg.setting == "DL" or len(fresh_rows) < n_t):
+            if arr <= t_end and (cfg.setting == "DL" or self._sel_spec.select_all
+                                 or len(fresh_rows) < n_t):
                 fresh_rows.append(i)
                 self.acct.unique.add(lid)
             elif cfg.saa:

@@ -25,6 +25,14 @@ step:
      ``use_agg_kernel`` routes only the coordinate-wise trim through its
      kernel (``kernels.trimmed_agg``).
 
+A ``needs_feedback`` selector (oort, ucb, contribution) reads each
+arrival's statistical utility, which comes from the training's per-row l2
+loss stats: for one the pipeline copies the survivors' stats to the host
+once, after the device round (span ``round.feedback``), then applies the
+selector feedback and caches the round's stragglers with their utility,
+as the reference's fused pipeline does.  Any other selector gets its
+feedback (utility 0) before the device round, and nothing is fetched.
+
 The model row, the cache rows and the YoGi state are kept ``d_pad`` wide
 under the SAA kernels (D rounded up to their 2048-column block); the pad
 columns stay exact zeros (zero in YoGi's m and v too) because the deltas
@@ -84,6 +92,7 @@ class RoundPipeline:
                                   dtype=torch.float32, device=dev)
         self._beta = self._scal[:, 0].contiguous()
         self._pending_free = []   # freed slots quarantined for one round
+        self.fetch_l2s = sim._sel_spec.needs_feedback
 
     def run(self):
         """Drive every round, then finalize; returns the Accounting."""
@@ -113,15 +122,20 @@ class RoundPipeline:
             self._pending_free = _quarantine_frees(sched)
             if sched.new_stale:
                 sched.slots = self.cache.alloc(len(sched.new_stale))
-            sim._apply_feedback(r, sched, None)
-            for (_row, lid, arr, dur), slot in zip(sched.new_stale, sched.slots):
-                sim.stale_cache.append(_InFlight(lid, r, arr, dur, slot, 0.0))
+            if not self.fetch_l2s:
+                self._feedback(r, sched, None)
             rec = sim._advance_round_state(r, plan.t_now, sched.t_end,
                                            len(plan.chosen),
                                            len(sched.fresh_rows),
                                            len(sched.landing))
         with record_function("round.device"):
-            self._device_round(r, plan, sched)
+            l2 = self._device_round(r, plan, sched)
+        if self.fetch_l2s:
+            with record_function("round.feedback"):
+                l2s = np.zeros(plan.k, np.float32)      # by plan row
+                if l2 is not None:
+                    l2s[sim.survivors(plan)[0]] = l2.cpu().numpy()
+                self._feedback(r, sched, l2s)
         if sim.eval_due(r):
             with record_function("round.eval"):
                 acc, loss = sim._model_fns.evaluate(
@@ -130,7 +144,20 @@ class RoundPipeline:
                 sim._fill_round_eval(rec, acc, loss, progress=self.progress)
         return rec
 
-    def _device_round(self, r, plan, sched) -> None:
+    def _feedback(self, r, sched, l2s) -> None:
+        """The round's selector feedback, then its stragglers into the
+        host cache with their statistical utility (0 when ``l2s`` is
+        None)."""
+        sim = self.sim
+        sim._apply_feedback(r, sched, l2s)
+        for (row, lid, arr, dur), slot in zip(sched.new_stale, sched.slots):
+            sim.stale_cache.append(_InFlight(lid, r, arr, dur, slot,
+                                             sim._stat_util(row, l2s)))
+
+    def _device_round(self, r, plan, sched):
+        """The round's training and server step on the device; returns the
+        survivors' l2 stats (a device tensor), or None when no learner
+        survived."""
         sim = self.sim
         cfg = sim.cfg
         surv, pos = sim.survivors(plan)
@@ -151,13 +178,14 @@ class RoundPipeline:
         bidx, stale_rows, slots, fresh_pos, land_slots, taus, att_t = \
             torch.split(ints, sizes)
 
+        l2 = None
         if len(surv):
-            deltas, _, _ = sim.train_cohort(
+            deltas, _, l2 = sim.train_cohort(
                 self.params[0], bidx.view(len(surv), -1), out_dim=self.d_pad)
             if sched.new_stale:
                 self.cache.rows[slots] = deltas[stale_rows]
         if nf + ns == 0:
-            return
+            return l2
         u = torch.cat(([deltas[fresh_pos]] if nf else [])
                       + ([self.cache.rows[land_slots]] if ns else []))
         fresh = torch.arange(nf + ns, device=self.device) < nf
@@ -174,7 +202,7 @@ class RoundPipeline:
             saa_ops.sweep_fused_staleness_apply(
                 self.params, u[None], fresh[None], tau[None], valid[None],
                 self._scal, rule=cfg.scaling_rule)
-            return
+            return l2
         elif cfg.use_agg_kernel:
             agg, _ = saa_ops.sweep_fused_staleness_aggregate(
                 u[None], fresh[None], tau[None], self._beta, valid[None],
@@ -191,6 +219,7 @@ class RoundPipeline:
             self.params[0] = new
         else:
             self.params[0] += cfg.server_lr * agg
+        return l2
 
     def finalize(self):
         """Write the device model back to the Simulator and finalize it."""

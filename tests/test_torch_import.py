@@ -53,7 +53,9 @@ def test_no_source_mentions_jax_or_reference_imports():
                  "kernels.swa_attention.ops", "kernels.wkv6.ops",
                  "models.transformer", "models.attention", "models.rwkv6",
                  "configs.internlm2_1_8b", "configs.rwkv6_1_6b",
-                 "launch.serve", "serve_model"):
+                 "launch.serve", "serve_model", "selection.safa",
+                 "selection.oort", "selection.ucb", "selection.contribution",
+                 "selection.flips", "selector_zoo"):
         assert f"repro_torch.{name}" in names
 
 
@@ -73,8 +75,7 @@ def test_simulator_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
     (dict(shard_participants=2), 14),
     (dict(benchmark="tokens", model="transformer"), 2),
     (dict(model="transformer"), 13),
-    (dict(selector="oort"), 6),
-    (dict(selector="safa"), 6),
+    (dict(benchmark="tokens", selector="flips"), 2),
     (dict(fused_rounds=False, guard=True), 10),
     (dict(fused_rounds=False, telemetry=1), 12),
 ])

@@ -1,12 +1,16 @@
-"""The SAA family's two server-step variants: the one-launch
-thread-block-cluster kernel and the three-launch chain
-(``repro_torch.kernels.staleness_agg``).
+"""The SAA family's two variants: the one-launch thread-block-cluster
+kernels and the chains (three launches for the server step, two for the
+deviation partials) (``repro_torch.kernels.staleness_agg``).
 
 On the CPU: which variant each shape takes (``ops.variant``), the tagged
 launch keys, that a forced variant runs the same plain version as the
 default and counts no launch, and that every entry point still rejects bad
-operands and never falls back off the CPU.  On the card (``cuda`` marker):
-the cluster kernel equals the chain bit for bit.
+operands and never falls back off the CPU.  Kernel 5's CUDA route, with
+torch's CUDA bindings and the C entry points stood in for: the entry point
+each chunk count takes, the launch keys, no partials scratch on the
+cluster route, and the cluster's own errors raised with no fall back to
+the chain.  On the card (``cuda`` marker): each cluster kernel equals its
+chain bit for bit.
 """
 from collections import Counter
 
@@ -237,6 +241,140 @@ def test_non_contiguous_raises(kernel):
 
 
 # ---------------------------------------------------------------------------
+# Kernel 5 (deviation_partials): the cluster kernel or the two-launch chain
+# ---------------------------------------------------------------------------
+
+PARTIAL_ENTRIES = {"cluster": "saa_cluster_deviation_partials",
+                   "chain": "saa_deviation_partials"}
+
+
+class _Entry:
+    """A C entry point stand-in: logs its name and arguments, returns
+    ``err``."""
+
+    def __init__(self, name, log, err=0):
+        self.name, self.log, self.err = name, log, err
+        self.fn = self
+
+    def __call__(self, *args):
+        self.log.append((self.name, args))
+        return self.err
+
+
+@pytest.fixture
+def card_route(monkeypatch):
+    """Kernel 5's CUDA route on a CPU-only build: every plan names CUDA
+    device 0, the two calls ``launch`` makes into torch's CUDA bindings
+    return device 0 and stream 1234, both C entry points log their calls,
+    and the chain's scratch allocation is logged.  Returns the log and a
+    setter of the entry points' return code."""
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1234,
+                        raising=False)
+    monkeypatch.setattr(ops, "_cuda_device",
+                        lambda device, *rows: torch.device("cuda", 0))
+    monkeypatch.setattr(ops._plan_partials, "seen", {})
+    log = {"entries": [], "scratch": []}
+
+    def returning(err):
+        for name in PARTIAL_ENTRIES.values():
+            monkeypatch.setitem(ops._ENTRIES, name, _Entry(name, log["entries"], err))
+    returning(0)
+
+    def scratch(s, n, d, device):
+        log["scratch"].append((s, n, d))
+        return (torch.empty((s, d // BLK, n)), torch.empty((s, d // BLK)))
+    monkeypatch.setattr(ops, "_scratch", scratch)
+    return log, returning
+
+
+def _partials(n, chunks, **kw):
+    u = torch.zeros((n, chunks * BLK))
+    fresh = torch.arange(n) < max(1, n // 2)
+    return ops.deviation_partials(u, fresh, **kw)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 7, 8, 9, 15, 16, 17, 24, 64, 512])
+@pytest.mark.parametrize("n", [1, 2, 29, 64])
+def test_partials_route_by_chunks(card_route, n, chunks):
+    """Up to 16 chunks one launch of the cluster entry point with only the
+    two outputs (no scratch); beyond, the chain's entry point with its
+    scratch.  Each call counts one launch under the kernel and its
+    variant."""
+    log, _ = card_route
+    want = "cluster" if chunks <= ops.CLUSTER_MAX_CHUNKS else "chain"
+    assert ops.variant(1, n, chunks * BLK) == want
+    before = Counter(LAUNCHES)
+    num, den = _partials(n, chunks)
+    assert (num.shape, den.shape) == ((n,), ())
+    assert Counter(LAUNCHES) - before == Counter(
+        {ops.PARTIALS: 1, ops.launch_key(ops.PARTIALS, want): 1})
+    (name, args), = log["entries"]
+    assert name == PARTIAL_ENTRIES[want]
+    assert args[-3:] == (n, chunks * BLK, 1234)          # n, D, the stream
+    assert len(args) == {"cluster": 7, "chain": 9}[want]  # pointers, ints, stream
+    assert args[2:4] == (num.data_ptr(), den.data_ptr())
+    assert log["scratch"] == ([] if want == "cluster" else [(1, n, chunks * BLK)])
+    for key in (ops.PARTIALS, ops.launch_key(ops.PARTIALS, want)):
+        LAUNCHES[key] -= 1
+
+
+@pytest.mark.parametrize("v", ops.VARIANTS)
+def test_partials_forced_variant(card_route, v):
+    """A forced variant takes its own entry point at any chunk count."""
+    log, _ = card_route
+    before = Counter(LAUNCHES)
+    for chunks in (1, 7, 17, 64):
+        _partials(10, chunks, variant=v)
+    assert [name for name, _ in log["entries"]] == [PARTIAL_ENTRIES[v]] * 4
+    assert len(log["scratch"]) == (4 if v == "chain" else 0)
+    got = Counter(LAUNCHES) - before
+    assert got == Counter({ops.PARTIALS: 4, ops.launch_key(ops.PARTIALS, v): 4})
+    for key in got:
+        LAUNCHES[key] -= 4
+
+
+@pytest.mark.parametrize("err, why", [(-1, "cannot schedule the thread block cluster"),
+                                      (-2, "too large for the cluster kernel")])
+def test_partials_cluster_errors_raise_without_fall_back(card_route, err, why):
+    """The cluster entry point's own errors raise with their messages and
+    count nothing; the chain is never tried in their place."""
+    log, returning = card_route
+    returning(err)
+    before = Counter(LAUNCHES)
+    for _ in range(2):                 # the memoised plan raises again too
+        with pytest.raises(RuntimeError, match=rf"error {err}: .*{why}"):
+            _partials(10, 7)
+    assert Counter(LAUNCHES) == before
+    assert [name for name, _ in log["entries"]] == [PARTIAL_ENTRIES["cluster"]] * 2
+    assert log["scratch"] == []
+
+
+def test_partials_cuda_error_raises(card_route):
+    log, returning = card_route
+    returning(700)
+    with pytest.raises(RuntimeError, match="error 700$"):
+        _partials(4, 20)
+    assert [name for name, _ in log["entries"]] == [PARTIAL_ENTRIES["chain"]]
+
+
+@pytest.mark.parametrize("v", ops.VARIANTS + (None,))
+def test_partials_forced_variant_on_cpu_is_the_plain_version(v):
+    _, u, fresh, _, _, _ = _operands(1, 6, 3 * BLK, seed=3)
+    before = Counter(LAUNCHES)
+    got = ops.deviation_partials(u[0], fresh[0], variant=v)
+    want = ref.deviation_partials(u[0], fresh[0])
+    assert Counter(LAUNCHES) == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_partials_bad_variant_raises():
+    _, u, fresh, _, _, _ = _operands(1, 4, BLK)
+    with pytest.raises(ValueError, match="variant"):
+        ops.deviation_partials(u[0], fresh[0], variant="bogus")
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -271,3 +409,25 @@ def test_cuda_cluster_equals_chain_bitwise():
         agg_r, w_r = ref.sweep_fused_staleness_aggregate(u, fresh, tau, beta, valid)
         torch.testing.assert_close(out["cluster"][2], agg_r, rtol=1e-4, atol=1e-5)
         torch.testing.assert_close(out["cluster"][3], w_r, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_partials_cluster_equals_chain_bitwise():
+    """On the card: kernel 5's cluster kernel == its two-launch chain bit
+    for bit (int32 views) at every chunk count from 1 to 16, and past the
+    rows the server step's cluster stages; each launch counted under its
+    variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    for n in (1, 2, 10, 29, 64):
+        for chunks in range(1, ops.CLUSTER_MAX_CHUNKS + 1):
+            _, u, fresh, *_ = [t.cuda() for t in _operands(1, n, chunks * BLK, n)]
+            before = Counter(LAUNCHES)
+            got = {v: ops.deviation_partials(u[0], fresh[0], variant=v)
+                   for v in ops.VARIANTS}
+            torch.cuda.synchronize()
+            assert Counter(LAUNCHES) - before == Counter(
+                {ops.PARTIALS: 2, **{ops.launch_key(ops.PARTIALS, v): 1
+                                     for v in ops.VARIANTS}})
+            for a, b in zip(got["cluster"], got["chain"]):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
