@@ -250,6 +250,41 @@ DEFENSES = {               # campaign -> (aggregator settings, its kernel)
                               guard_reject_mult=5.0), None),
 }
 
+# --- the sweep paths: lockstep batches of S cells (repro_torch.sweeps) ---
+# benchmarks/bench_sweeps.py's S = 64 grid at the quickstart's scale, with
+# the SAA kernels on: four selector-uniform batches of 16 cells
+HARDWARE = ["HS1", "HS2", "HS3", "HS4"]
+SWEEP_BASE = dict(n_learners=100, mapping="label_uniform", rounds=40,
+                  eval_every=10, use_agg_kernel=True)
+SWEEP_GRID = dict(axes={"selector": ["random", "oort", "priority", "safa"],
+                        "saa": [False, True], "hardware": HARDWARE},
+                  base=SWEEP_BASE, seeds=(0, 1))
+# the same grid's 16 cells of seed 0 and HS1 / HS3 (bench_sweeps' S = 16)
+SWEEP16_AXES = {"selector": ["random", "oort", "priority", "safa"],
+                "saa": [False, True], "hardware": ["HS1", "HS3"]}
+# RELAY + YoGi (S = 8), and the robustness race's two coordinate-wise
+# defenses (S = 8 each; the race's settings, its seed now a grid axis)
+YOGI_SWEEP = dict(axes={"hardware": HARDWARE},
+                  base=dict(SWEEP_BASE, selector="priority", apt=True, saa=True,
+                            scaling_rule="relay", server_opt="yogi"),
+                  seeds=(0, 1))
+ROBUST_SWEEPS = {name: dict(axes={"hardware": HARDWARE},
+                            base={**{k: v for k, v in RACE.items() if k != "seed"},
+                                  **DEFENSES[name][0]}, seeds=(0, 1))
+                 for name in ("coord_median", "trimmed_mean")}
+# batched vs serial where cuBLAS's batched GEMM gives one matrix other bits
+# at another batch count (the probe below): the params' tolerance, the
+# small runs' GPU-vs-CPU rule
+SWEEP_RTOL, SWEEP_ATOL = 1e-3, 1e-4
+# the probe's shapes: the batched MLP's five GEMMs a training step (B = 16
+# samples, 64 features, 128 hidden, 35 classes), as (m, k, n)
+TRAIN_GEMMS = {"x @ w1": (16, 64, 128), "h @ w2": (16, 128, 35),
+               "dlogits @ w2^T": (16, 35, 128), "x^T @ dh": (64, 16, 128),
+               "h^T @ dlogits": (128, 16, 35)}
+# kernels 1 and 2 at S cells, kernel 7 at S groups
+SWEEP_TIME_S = (1, 4, 16, 64)
+TRIM_TIME_S = (1, 8)
+
 
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
@@ -1492,6 +1527,362 @@ def attacker_sets(sim):
     return [plan.attackers(r).tolist() for r in range(sim.cfg.rounds)]
 
 
+# --- the sweep paths -------------------------------------------------------
+
+
+def gemm_probe(torch, gen, counts) -> dict:
+    """Whether cuBLAS's batched GEMM gives one matrix the same bits at every
+    batch count: for each of the training step's GEMMs, matrix 0 of a bmm
+    over R matrices against the same matrix alone (R = 1), as int32 views.
+    {gemm: {R: equal}}."""
+    out = {}
+    for name, (m, k, n) in TRAIN_GEMMS.items():
+        a = torch.randn((max(counts), m, k), generator=gen, device="cuda")
+        b = torch.randn((max(counts), k, n), generator=gen, device="cuda")
+        one = torch.bmm(a[:1], b[:1])[0]
+        out[name] = {r: bits_equal(torch, torch.bmm(a[:r], b[:r])[0], one)
+                     for r in counts}
+    return out
+
+
+def batch_rounds(results, idxs):
+    """{round: the rows the server step's launch saw (the largest group)}
+    over the batch-rounds of cells ``idxs`` in which some cell aggregated."""
+    out = {}
+    for i in idxs:
+        for rec in results[i].acct.records:
+            n = rec.n_fresh + rec.n_stale
+            if n:
+                out[rec.round_idx] = max(out.get(rec.round_idx, 0), n)
+    return out
+
+
+def sweep_launch_gate(saa_ops, trim_ops, runner, results, got, kernel, name):
+    """Fail unless ``kernel`` launched once per batch-round that aggregated
+    (kernels 1-2 on the cluster kernel, kernel 7 on the variant of the
+    round's padded n) and no other kernel launched.  Returns the n each
+    launch saw."""
+    rows = [n for idxs in runner.batches()
+            for n in batch_rounds(results, idxs).values()]
+    want = Counter({kernel: len(rows)})
+    if kernel == TRIM:
+        want.update(saa_ops.launch_key(TRIM, trim_ops.variant(n)) for n in rows)
+    else:
+        want[saa_ops.launch_key(kernel, "cluster")] = len(rows)
+    if not rows or got != dict(want):
+        fail(f"{name}: launches {got}, expected {dict(want)} (one per "
+             "batch-round that aggregated, and no other kernel)")
+    return rows
+
+
+def rows_line(name, rows) -> str:
+    resident = sum(cluster_resident(n, MAIN_D) for n in rows)
+    return (f"{name}: rows a launch min {min(rows)}, median "
+            f"{sorted(rows)[len(rows) // 2]}, max {max(rows)}; U in shared "
+            f"memory in {resident} launches, from L2 in {len(rows) - resident}")
+
+
+def hold_to_serial(torch, name, cells, results, runner, serial, exact):
+    """Each cell of a sweep against its serial run: bit for bit (summaries,
+    records, params as int32 views) where ``exact``, else host records
+    ``==`` and params within SWEEP_RTOL / SWEEP_ATOL; the robust counters
+    and attacker sets ``==`` either way.  Returns (cells bitwise equal,
+    largest params difference)."""
+    from repro_torch.sweeps import summaries_equal
+    bitwise, diff = 0, 0.0
+    for i, c in enumerate(cells):
+        sim, acct = serial[i]
+        mine = runner.sims[i]
+        same = (summaries_equal(dict(results[i].summary), acct.summary())
+                and [record_bits(r) for r in results[i].acct.records]
+                == [record_bits(r) for r in acct.records]
+                and bits_equal(torch, mine.flat_params, sim.flat_params))
+        bitwise += same
+        diff = max(diff, (mine.flat_params - sim.flat_params).abs().max().item())
+        if exact and not same:
+            fail(f"{name}: cell {c.name} differs from its serial run")
+        if [host(r) for r in results[i].acct.records] != \
+                [host(r) for r in acct.records]:
+            fail(f"{name}: cell {c.name}: host records differ from its serial run")
+        if not torch.allclose(mine.flat_params, sim.flat_params,
+                              rtol=SWEEP_RTOL, atol=SWEEP_ATOL):
+            fail(f"{name}: cell {c.name}: params differ from its serial run "
+                 f"by {diff}")
+        if robust_counts(results[i].acct) != robust_counts(acct):
+            fail(f"{name}: cell {c.name}: robust counters differ from serial")
+        if attacker_sets(mine) != attacker_sets(sim):
+            fail(f"{name}: cell {c.name}: attacker sets differ from serial")
+    return bitwise, diff
+
+
+def time_sweep_kernel(torch, ops, ref, kernel, s, n, d, gen) -> dict:
+    """Kernel 1 or 2 at S cells of n rows ('mixed' operands): events over
+    200 calls, CUDA-graph replay, the profiler's kernel time and the plain
+    version's graph time, beside the bound from these inputs."""
+    k, p, _, nf = kernel_calls(torch, ops, ref, kernel, s, n, d, gen)
+    nbytes, flops = saa_cost(kernel, s, n, d, nf)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    v = ops.variant(s, n, d)
+    return {"shape": {"S": s, "n": n, "D": d}, "variant": v,
+            "ms": time_ms(torch, k, 200), "device_ms": graph_ms(torch, k),
+            "kernel_ms": kernel_ms(torch, k, VARIANT_KERNELS[v]),
+            "plain_device_ms": graph_ms(torch, p), "bytes": nbytes,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_sweep_trimmed(torch, ops, ref, checks, s, n, d, gen) -> dict:
+    """Kernel 7 at S groups of n rows (the median's depth), held to its
+    plain version first, timed as ``time_sweep_kernel``."""
+    y = torch.randn((s, n, d), generator=gen, device="cuda")
+    k = torch.full((s,), (n - 1) // 2, dtype=torch.int32, device="cuda")
+    c = torch.full((s,), n, dtype=torch.int32, device="cuda")
+    fn = lambda: ops.sweep_trimmed_aggregate(y, k, c)
+    checks.close(TRIM, fn(), ref.sweep_trimmed_aggregate(y, k, c),
+                 f"S={s} n={n} D={d} (sweep)", weights=True)
+    checks.count(TRIM)
+    nbytes, lane_ops = trimmed_cost(s, n, d, n - 2 * ((n - 1) // 2))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = lane_ops / PEAK_FP32_LANE_OPS * 1e3
+    v = ops.variant(n)
+    return {"shape": {"S": s, "n": n, "D": d}, "variant": v,
+            "ms": time_ms(torch, fn, 200), "device_ms": graph_ms(torch, fn),
+            "kernel_ms": kernel_ms(torch, fn, TRIM_KERNELS[v]),
+            "plain_device_ms": graph_ms(torch, lambda: ref.sweep_trimmed_aggregate(
+                y, k, c)), "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def sweep_paths(torch, gen, checks, launches) -> dict:
+    """The five sweep paths on the card, each with the launch counters
+    zeroed just before it and read just after; their gates; batched and
+    serial wall times; kernels 1, 2 and 7 at S > 1.  Returns (the report,
+    a function that profiles each path's first batch: the caller runs it
+    after the script's other profiles)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.staleness_agg import ops as saa_ops
+    from repro_torch.kernels.staleness_agg import ref as saa_ref
+    from repro_torch.kernels.trimmed_agg import ops as trim_ops
+    from repro_torch.kernels.trimmed_agg import ref as trim_ref
+    from repro_torch.sim import SimConfig, Simulator, Substrate
+    from repro_torch.sim import pipeline as pl
+    from repro_torch.sim.engine import substrate_key
+    from repro_torch.sweeps import SweepRunner, SweepSpec
+    from repro_torch.sweeps import summaries_equal
+
+    out = {"paths": {}}
+    probe = gemm_probe(torch, gen, (1, 2, 10, 13, 16, 22, 64, 160, 208, 352, 640))
+    exact = all(all(v.values()) for v in probe.values())
+    out["gemm_probe"] = {g: {str(r): e for r, e in v.items()} for g, v in probe.items()}
+    print("cuBLAS batched GEMM probe (matrix 0 of a bmm over R matrices == the "
+          "matrix alone, int32 views), the training step's GEMMs: " + "; ".join(
+              f"{g}: differs at R in {[r for r, e in v.items() if not e]}"
+              for g, v in probe.items()))
+    print("batched vs serial gate: " + (
+        "bit for bit" if exact else
+        f"host records ==, params within rtol {SWEEP_RTOL} / atol {SWEEP_ATOL} "
+        "(cuBLAS gives one matrix other bits at another batch count)"))
+    out["exact"] = exact
+
+    cache = {}
+
+    def cells_of(spec):
+        cs = SweepSpec(**spec).expand()
+        for c in cs:
+            key = substrate_key(c.config)
+            if key not in cache:
+                cache[key] = Substrate.build(c.config)
+        return cs
+
+    def batched(name, cells, kernel):
+        runner = SweepRunner(cells, device="cuda", substrate_cache=cache)
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = runner.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(LAUNCHES)
+        rows = sweep_launch_gate(saa_ops, trim_ops, runner, res, got, kernel, name)
+        launches.update(got)
+        cell_rounds = sum(len(r.acct.records) for r in res)
+        out["paths"][name] = {"cells": len(cells), "batches": len(runner.batches()),
+                              "launches": got, "batch_rounds": len(rows),
+                              "rows": dict(Counter(rows)),
+                              "batched_s": wall, "cell_rounds": cell_rounds,
+                              "batched_cell_rounds_per_s": cell_rounds / wall}
+        print(f"{name}: {len(cells)} cells in {len(runner.batches())} batches, "
+              f"{got} over {len(rows)} batch-rounds that aggregated; "
+              f"{cell_rounds} cell-rounds in {wall:.2f}s batched = "
+              f"{cell_rounds / wall:.1f} cell-rounds/s")
+        print("  " + rows_line(name, rows))
+        return runner, res, rows
+
+    jobs = []        # profiles, taken after the script's other profiles
+
+    def profiled(name, cells, runner, res):
+        """Queue a profile of the path's first batch, run again."""
+        first = runner.batches()[0]
+        # the batch-rounds in which some cell of the batch took part
+        rounds = len({x.round_idx for i in first for x in res[i].acct.records})
+        jobs.append((name, [cells[i] for i in first], rounds))
+
+    def profile_paths():
+        for name, batch, rounds in jobs:
+            prof = profile_campaign(torch, lambda: SweepRunner(
+                batch, device="cuda", substrate_cache=cache).run())
+            prof.update(cells=len(batch), batch_rounds=rounds,
+                        gpu_kernels_per_batch_round=prof["gpu_kernels"] / rounds)
+            out["paths"][name]["profile"] = prof
+            idle = prof["device_idle_share"]
+            print(f"{name}: profile of its first batch ({len(batch)} "
+                  f"{batch[0].config.selector} cells, {rounds} batch-rounds): "
+                  f"{prof['gpu_kernels']} GPU kernels "
+                  f"({prof['gpu_kernels_per_batch_round']:.1f} a batch-round), "
+                  f"busy {prof['device_busy_ms']:.1f} of {prof['wall_ms']:.1f} ms "
+                  f"(idle share {'not measured' if idle is None else f'{idle:.3f}'})"
+                  "; host spans (CPU ms): " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in sorted(prof["host_spans_ms"].items())))
+
+    def serially(name, cells):
+        sims = [Simulator(c.config, substrate=cache[substrate_key(c.config)],
+                          device="cuda") for c in cells]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accts = [sim.run() for sim in sims]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        p = out["paths"][name]
+        p.update(serial_s=wall, serial_cell_rounds_per_s=p["cell_rounds"] / wall,
+                 speedup=wall / p["batched_s"])
+        print(f"  serial: {wall:.2f}s = {p['cell_rounds'] / wall:.1f} "
+              f"cell-rounds/s; batched {p['speedup']:.2f}x")
+        return list(zip(sims, accts))
+
+    def gate_serial(name, cells, runner, res, serial):
+        bitwise, diff = hold_to_serial(torch, name, cells, res, runner,
+                                       serial, exact)
+        out["paths"][name].update(cells_bitwise_to_serial=bitwise,
+                                  max_params_diff_to_serial=diff)
+        print(f"  batched vs serial: host records, robust counters and attacker "
+              f"sets ==; {bitwise} of {len(cells)} cells bit for bit; params max "
+              f"abs diff {diff:.3g}")
+
+    # 1. S = 64, fused: kernel 1 once a batch-round
+    grid = cells_of(SWEEP_GRID)
+    runner64, res64, rows64 = batched("sweep S=64 fused", grid, APPLY)
+    profiled("sweep S=64 fused", grid, runner64, res64)
+    serial64 = serially("sweep S=64 fused", grid)
+    gate_serial("sweep S=64 fused", grid, runner64, res64, serial64)
+    # the 16 seed-0 HS1 / HS3 cells' host records against a CPU run
+    pick = [i for i, c in enumerate(grid) if c.config.seed == 0
+            and c.config.hardware_scenario in ("HS1", "HS3")]
+    cpu = SweepRunner([grid[i] for i in pick], device="cpu").run()
+    for i, r in zip(pick, cpu):
+        if [host(x) for x in res64[i].acct.records] != \
+                [host(x) for x in r.acct.records]:
+            fail(f"sweep S=64 fused: cell {grid[i].name}: host records differ "
+                 "from a CPU run")
+    print(f"  host records of the {len(pick)} seed-0 HS1/HS3 cells == a CPU run's")
+    # 2. the same grid on the per-stage path: kernel 2, equal to the fused sweep
+    flat = [dataclasses.replace(c, config=dataclasses.replace(
+        c.config, fused_rounds=False)) for c in grid]
+    runner_f, res_f, _ = batched("sweep S=64 per-stage", flat, AGG)
+    for i, c in enumerate(grid):
+        if not (summaries_equal(dict(res_f[i].summary), dict(res64[i].summary))
+                and [record_bits(r) for r in res_f[i].acct.records]
+                == [record_bits(r) for r in res64[i].acct.records]
+                and bits_equal(torch, runner_f.sims[i].flat_params,
+                               runner64.sims[i].flat_params)):
+            fail(f"sweep S=64 per-stage: cell {c.name} differs from the fused sweep")
+    print("  per-stage sweep == fused sweep, bit for bit (summaries, records, "
+          "params) in all 64 cells")
+    profiled("sweep S=64 per-stage", flat, runner_f, res_f)
+    gate_serial("sweep S=64 per-stage", flat, runner_f, res_f,
+                serially("sweep S=64 per-stage", flat))
+    # 3. RELAY + YoGi: kernel 2
+    cells = cells_of(YOGI_SWEEP)
+    runner, res, _ = batched("sweep YoGi S=8", cells, AGG)
+    profiled("sweep YoGi S=8", cells, runner, res)
+    gate_serial("sweep YoGi S=8", cells, runner, res,
+                serially("sweep YoGi S=8", cells))
+    # 4. the robustness race's coordinate-wise defenses: kernel 7
+    for dname, spec in ROBUST_SWEEPS.items():
+        name = f"sweep {dname} S=8"
+        cells = cells_of(spec)
+        runner, res, _ = batched(name, cells, TRIM)
+        profiled(name, cells, runner, res)
+        gate_serial(name, cells, runner, res, serially(name, cells))
+    # 5. early stop: the S = 16 grid with a target at the upper quartile of
+    # its cells' accuracies at their last evaluation before the final round
+    # of the S = 64 sweep: a quarter of them stop there or earlier
+    last = SWEEP_BASE["rounds"] - 1
+    before_last = sorted([x.accuracy for x in res64[i].acct.records
+                          if x.round_idx < last and x.accuracy == x.accuracy][-1]
+                         for i in pick)
+    target = before_last[3 * len(before_last) // 4]
+    cells = cells_of(dict(axes=SWEEP16_AXES, base=dict(
+        SWEEP_BASE, target_accuracy=target), seeds=(0,)))
+    rounds_in = Counter()        # device rounds each cell took part in
+    train = pl.train_packed
+
+    def recording(sims, data, params, plans, order):
+        rounds_in.update(id(sims[i]) for i in order)
+        return train(sims, data, params, plans, order)
+    pl.train_packed = recording
+    try:
+        runner, res, _ = batched("sweep early stop S=16", cells, APPLY)
+    finally:
+        pl.train_packed = train
+    stopped = [i for i, r in enumerate(res) if r.summary["stopped_early"]]
+    before = [i for i in stopped if res[i].acct.records[-1].round_idx < last]
+    if not before:
+        fail(f"early stop: {len(stopped)} of {len(cells)} cells stopped at "
+             f"target {target}, none before the last round")
+    for i, r in enumerate(res):     # a round a record: none after a stop
+        if rounds_in[id(runner.sims[i])] != len(r.acct.records):
+            fail(f"early stop: cell {cells[i].name} took part in "
+                 f"{rounds_in[id(runner.sims[i])]} device rounds over "
+                 f"{len(r.acct.records)} recorded rounds")
+    out["paths"]["sweep early stop S=16"].update(
+        target_accuracy=target, stopped=len(stopped),
+        stopped_before_last_round=len(before),
+        rounds_run=sum(r.summary["rounds"] for r in res))
+    print(f"  target accuracy {target:.4f} (the upper quartile before the "
+          "final round): "
+          f"{len(stopped)} of {len(cells)} cells stopped, {len(before)} before "
+          f"round {SWEEP_BASE['rounds']}; no cell took part in a device round "
+          "after its stop")
+    profiled("sweep early stop S=16", cells, runner, res)
+    gate_serial("sweep early stop S=16", cells, runner, res,
+                serially("sweep early stop S=16", cells))
+    # each sweep kernel against its plain version at every (S, n) it ran at
+    ns = {APPLY: Counter(rows64), AGG: Counter(out["paths"]["sweep YoGi S=8"]["rows"])}
+    for kernel, n_seen in ns.items():
+        for n_ in sorted(n_seen):
+            for s_ in (len(runner64.batches()[0]), 8):
+                check_family(torch, saa_ops, saa_ref, checks, s_, n_, MAIN_D,
+                             "relay", "padding", gen, rule_free=False)
+    # kernels 1 and 2 at S cells, kernel 7 at S groups, at the paths' n
+    n1 = Counter(rows64).most_common(1)[0][0]
+    n2 = Counter(out["paths"]["sweep YoGi S=8"]["rows"]).most_common(1)[0][0]
+    n7 = Counter(out["paths"]["sweep trimmed_mean S=8"]["rows"]).most_common(1)[0][0]
+    out["times"] = {
+        APPLY: {s_: time_sweep_kernel(torch, saa_ops, saa_ref, APPLY, s_, n1,
+                                      MAIN_D, gen) for s_ in SWEEP_TIME_S},
+        AGG: {s_: time_sweep_kernel(torch, saa_ops, saa_ref, AGG, s_, n2,
+                                    MAIN_D, gen) for s_ in SWEEP_TIME_S},
+        TRIM: {s_: time_sweep_trimmed(torch, trim_ops, trim_ref, checks, s_, n7,
+                                      TRIM_D[-1], gen) for s_ in TRIM_TIME_S}}
+    for kernel, by_s in out["times"].items():
+        for s_, t in by_s.items():
+            print(f"{kernel} S={s_} {t['shape']} [{t['variant']}]: {t['ms']:.4f} ms "
+                  f"events, {t['device_ms']:.4f} graph, {t['kernel_ms']:.5f} kernel "
+                  f"by the profiler; plain {t['plain_device_ms']:.4f} graph; bound "
+                  f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    return out, profile_paths
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1845,6 +2236,9 @@ def main():
           f"(D={p_cpu.numel()})")
 
     lap("FL results against the CPU")
+    # --- the sweep paths: lockstep batches of S cells --------------------
+    report["sweeps"], profile_sweeps = sweep_paths(torch, gen, checks, launches)
+    lap("sweep paths")
     # --- the model zoo's serve path at full width -----------------------
     serve = serve_paths(torch)
     launches.update(serve.pop("launches"))
@@ -1948,6 +2342,8 @@ def main():
           f"{times['flat_pad']['device_ms']:.4f}) per round")
     times.update(time_lm_kernels(torch, gen))
     lap("kernel times")
+    profile_sweeps()          # last: a profile of each sweep path's batch
+    lap("sweep profiles")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in report["phase_s"].items()))
     report.update(times=times, launches=dict(launches),
                   kernel_checks=dict(checks.n), cluster_equals_chain=dict(checks.same),

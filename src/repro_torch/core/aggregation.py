@@ -141,6 +141,82 @@ def stale_synchronous_aggregate_flat(stacked, fresh, tau, *,
                                        RULE_ID[rule])
 
 
+def sweep_bucket_pad(cell_updates, d: int, *, device=None):
+    """Pad a sweep round's per-cell update stacks to one (S, n, D) operand.
+
+    cell_updates: length-S list; entry ``s`` is None (no updates this
+    round: all-invalid rows, a zero aggregate) or ``(rows, fresh, tau)``
+    with ``rows`` a list of (D,) fp32 device rows.  Each cell's rows come
+    first, in order; the participant axis is padded with zero rows up to
+    the round's largest cell (at least 1), not to the reference's
+    ``bucket_block(n, 32)``: eager torch compiles no program per shape.
+    Returns tensors on the rows' device (``device`` when no cell has rows):
+    (U (S, n, d) fp32, fresh (S, n) bool, tau (S, n) int32, valid (S, n)
+    bool, has (S,) bool).
+    """
+    s_total = len(cell_updates)
+    sizes = [0 if c is None else len(c[0]) for c in cell_updates]
+    n = max(sizes + [1])
+    rows = [r for c in cell_updates if c is not None for r in c[0]]
+    dev = rows[0].device if rows else torch.device(device or "cpu")
+    meta = np.zeros((3, s_total, n), np.int32)     # fresh, tau, valid
+    dst = []
+    for i, c in enumerate(cell_updates):
+        if c is None:
+            continue
+        k = sizes[i]
+        meta[0, i, :k], meta[1, i, :k], meta[2, i, :k] = c[1], c[2], 1
+        dst.extend(range(i * n, i * n + k))
+    meta_t = torch.as_tensor(meta, device=dev)
+    u = torch.zeros((s_total * n, d), dtype=torch.float32, device=dev)
+    if rows:
+        u[torch.as_tensor(dst, device=dev)] = torch.stack(rows)
+    valid = meta_t[2].bool()
+    return (u.view(s_total, n, d), meta_t[0].bool(), meta_t[1], valid,
+            torch.as_tensor(np.asarray(sizes) > 0, device=dev))
+
+
+def sweep_aggregate_flat(stacked, fresh, tau, valid, beta, *, rule="relay",
+                         use_kernel: bool = False):
+    """SAA-aggregate S cells' rounds.
+
+    stacked: (S, n, D) fp32 with each cell's valid rows first (as
+    ``sweep_bucket_pad`` lays them out); fresh / tau / valid: (S, n);
+    ``beta``: the cells' Eq. 2 weights, a sequence of Python floats (or an
+    (S,) tensor); ``rule``: one rule name or one a cell.  Returns
+    (aggregate (S, D), weights (S, n)); a cell with no valid row gets a
+    zero row and zero weights.
+
+    ``use_kernel`` runs every cell in one launch of
+    ``sweep_fused_staleness_aggregate`` (kernel 2), which takes one rule,
+    so mixed rules raise, as in the reference.  The plain route runs each
+    cell's valid rows through ``weights_and_aggregate_by_id``, the function
+    a serial run calls on the same rows with the same Python ``beta``: the
+    batch's padding and its other cells cannot move a cell's bits (torch's
+    reductions pick their blocking by shape).
+    """
+    s = stacked.shape[0]
+    rules = [rule] * s if isinstance(rule, str) else list(rule)
+    if use_kernel:
+        if len(set(rules)) != 1:
+            raise ValueError("the sweep kernel takes one scaling rule; got "
+                             f"mixed rules {sorted(set(rules))}")
+        from repro_torch.kernels.staleness_agg import ops as agg_ops
+        beta_t = torch.as_tensor(np.asarray(
+            beta.cpu() if torch.is_tensor(beta) else beta, np.float32))
+        return agg_ops.sweep_staleness_aggregate(stacked, fresh, tau,
+                                                 valid=valid, rule=rules[0],
+                                                 beta=beta_t)
+    agg = stacked.new_zeros((s, stacked.shape[2]))
+    w = stacked.new_zeros(stacked.shape[:2])
+    for i, k in enumerate(valid.sum(dim=1).tolist()):
+        if k:
+            agg[i], w[i, :k] = weights_and_aggregate_by_id(
+                stacked[i, :k], fresh[i, :k], tau[i, :k], valid[i, :k],
+                float(beta[i]), RULE_ID[rules[i]])
+    return agg, w
+
+
 def screen_rows(u, valid, *, clip=None, reject_mult=None):
     """Screening of an update operand ``u`` (..., n, D); the reference's
     formula, which ``norm_median_clip`` runs.  Three screens, in order:

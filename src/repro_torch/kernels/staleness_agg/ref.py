@@ -59,7 +59,10 @@ def sweep_fused_staleness_aggregate(updates, fresh, tau, beta, valid, *,
     ``ops.sweep_fused_staleness_aggregate``."""
     num, den = deviation_partials(updates, fresh)
     w = saa_weights(num, den, fresh, tau, valid, beta, rule)
-    return torch.bmm(w[:, None, :], updates)[:, 0], w
+    # rows summed in order over the row axis: padding rows add exact
+    # zeros, so a cell's aggregate keeps its bits under any padding (a
+    # GEMM over the row axis picks its blocking by n)
+    return (w[..., None] * updates).sum(dim=-2), w
 
 
 def sweep_fused_staleness_apply(params, updates, fresh, tau, valid, scal, *,

@@ -10,7 +10,9 @@ consumes its :class:`ModelFns` triple of functions over parameter dicts:
     The local objective; leaves may carry a leading learner axis, and the
     means are then per learner.
 ``evaluate(params, x, y) -> (accuracy, loss)``
-    Held-out metric pair.
+    Held-out metric pair of L models at once: leaves batched (L, ...), x
+    and y with a leading L axis; two (L,) tensors, each model's numbers
+    independent of L (a sweep batch evaluates its cells in one call).
 """
 from __future__ import annotations
 

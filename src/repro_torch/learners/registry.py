@@ -19,6 +19,12 @@ def normalize_model_params(name: str, params) -> tuple:
     return MODEL_TABLE.normalize_params(name, params)
 
 
+def model_key(cfg) -> tuple:
+    """Static descriptor of the learner model for ``pipeline_key``: the
+    full ``(name, params)`` pair, so a knob override forms its own batch."""
+    return (cfg.model, tuple(cfg.model_params or ()))
+
+
 @functools.lru_cache(maxsize=32)
 def build_model(name: str, params: tuple, meta: DataMeta) -> ModelFns:
     """Resolve ``(model, model_params, meta)`` to its :class:`ModelFns`."""

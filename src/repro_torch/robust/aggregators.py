@@ -42,9 +42,36 @@ MASK_KINDS = ("krum", "multi_krum", "norm_median_clip")
 COORD_KINDS = ("trimmed_mean", "coord_median")
 
 __all__ = ["ROBUST_AGGREGATORS", "MASK_KINDS", "COORD_KINDS", "robust_key",
-           "krum_select", "weighted_rows", "trimmed_from_sorted",
-           "trimmed_weighted_aggregate", "robust_cell",
-           "robust_host_aggregate"]
+           "describe_aggregators", "krum_select", "weighted_rows",
+           "trimmed_from_sorted", "trimmed_weighted_aggregate", "robust_cell",
+           "robust_sweep", "robust_host_aggregate"]
+
+# one-line docs and knob names for ``--list-aggregators`` (the knobs are
+# the SimConfig fields the kind reads; ``robust_key`` decides when a knob
+# setting changes the path)
+_AGG_DOCS = {
+    "saa": ("plain SAA staleness-weighted aggregation (baseline)", ()),
+    "coord_median": ("per-coordinate median of SAA-weighted rows", ()),
+    "trimmed_mean": ("per-coordinate k-trimmed mean of SAA-weighted rows",
+                     ("trim_k",)),
+    "krum": ("Krum: keep the single closest-neighborhood row", ("krum_f",)),
+    "multi_krum": ("Multi-Krum: keep the m best-scored rows",
+                   ("krum_f", "multi_krum_m")),
+    "norm_median_clip": ("median-norm clip + reject screen",
+                         ("guard_clip", "guard_reject_mult")),
+}
+
+
+def describe_aggregators() -> str:
+    """Formatted strategy table (``--list-aggregators``)."""
+    from repro_torch.core.registry import describe_table
+    rows = []
+    for kind in ROBUST_AGGREGATORS:
+        style = ("mask" if kind in MASK_KINDS
+                 else "coord" if kind in COORD_KINDS else "baseline")
+        doc, knobs = _AGG_DOCS[kind]
+        rows.append((kind, style, ", ".join(knobs) or "-", doc))
+    return describe_table(("aggregator", "style", "knobs", "doc"), rows)
 
 
 def robust_key(cfg) -> Optional[Tuple]:
@@ -165,7 +192,8 @@ def trimmed_weighted_aggregate(u, fresh, tau, valid, beta, rule_id, *,
 # -- the shared composition: attack -> robust -> aggregate ---------------------
 
 def robust_cell(u, fresh, tau, valid, att, *, attack, robust, beta: float,
-                rule_id: int, use_kernel: bool, no_stale: bool = False):
+                rule_id: int, use_kernel: bool, no_stale: bool = False,
+                defer_trim: bool = False):
     """Attack, robust strategy and aggregate for one cell's operand.
 
     u: (n, D) fp32; fresh/valid: (n,) bool; tau: (n,) int32; att: (n,)
@@ -176,7 +204,10 @@ def robust_cell(u, fresh, tau, valid, att, *, attack, robust, beta: float,
     fused pipeline's round with no stale rows) weighs ``fresh & valid``
     directly, the same weight bits as the general path.  Returns
     ``(aggregate (D,), counts (2,) int32 [rows rejected, rows trimmed or
-    clipped])``, both on u's device (no host sync).
+    clipped])``, both on u's device (no host sync).  ``defer_trim`` (a
+    coordinate-wise kind) stops before the trim and returns ``((y, k_eff,
+    c), rows rejected)`` for ``robust_sweep`` to trim every group of a
+    round in one launch.
     """
     zero = torch.zeros((), dtype=torch.int32, device=u.device)
     if attack is not None:
@@ -194,6 +225,11 @@ def robust_cell(u, fresh, tau, valid, att, *, attack, robust, beta: float,
             u, valid, n_nf, n_out, trimmed = screen_rows(
                 u, valid, clip=clip, reject_mult=reject_mult)
             rejected = n_nf + n_out
+    if coord and defer_trim:
+        median = robust[0] == "coord_median"
+        y, c = weighted_rows(u, fresh, tau, valid, beta, rule_id)
+        return (y, _trim_depth(c, 0 if median else robust[1], median),
+                c), rejected
     if coord:
         median = robust[0] == "coord_median"
         out, trimmed = trimmed_weighted_aggregate(
@@ -206,6 +242,54 @@ def robust_cell(u, fresh, tau, valid, att, *, attack, robust, beta: float,
         out, _ = weights_and_aggregate_by_id(u, fresh, tau, valid, beta,
                                              rule_id)
     return out, torch.stack([rejected, trimmed])
+
+
+def robust_sweep(u, fresh, tau, valid, att, sizes, *, attack, robust,
+                 betas, rule_ids, use_kernel: bool, no_stale=None):
+    """The robust step of a round's G aggregation groups (the reference's
+    S-batched ``robust_sweep_fn``).
+
+    u: (G, n, D) fp32 with each group's ``sizes[g]`` rows first (fresh,
+    then landing stale); fresh / valid / att: (G, n) bool (``att`` None
+    when no attack is armed); tau: (G, n) int32; ``betas`` / ``rule_ids``
+    / ``no_stale``: one Python float / int / bool a group.  Each group's
+    attack, mask and SAA weights go through ``robust_cell`` on its own
+    rows, the calls a serial run makes: torch picks a reduction's blocking
+    by its shape, so one batched weights pass would move a group's bits
+    with the batch around it.  The coordinate-wise kinds under
+    ``use_kernel`` then trim all G groups in ONE launch of kernel 7, on a
+    (G, max size, D) operand padded with ``+inf`` rows (past every band)
+    and per-group ``k_eff`` / ``c``; the kernel's cells are independent and
+    its variants equal bit for bit, so the padding moves no bit.  Returns
+    ``(aggregate (G, D), counts (G, 2) int32 [rejected, trimmed])``.
+    """
+    coord = robust is not None and robust[0] in COORD_KINDS
+    defer = coord and use_kernel
+    outs, counts = [], []
+    for g, k in enumerate(sizes):
+        out, cnt = robust_cell(
+            u[g, :k], fresh[g, :k], tau[g, :k], valid[g, :k],
+            None if att is None else att[g, :k], attack=attack,
+            robust=robust, beta=betas[g], rule_id=rule_ids[g],
+            use_kernel=use_kernel,
+            no_stale=bool(no_stale is not None and no_stale[g]),
+            defer_trim=defer)
+        outs.append(out)
+        counts.append(cnt)
+    if not defer:
+        return torch.stack(outs), torch.stack(counts)
+    n = max(sizes)
+    y = u.new_full((len(sizes) * n, u.shape[2]), torch.inf)
+    dst = torch.as_tensor([g * n + j for g, k in enumerate(sizes)
+                           for j in range(k)], device=u.device)
+    y[dst] = torch.cat([o[0] for o in outs])
+    k_eff = torch.stack([o[1] for o in outs])
+    c = torch.stack([o[2] for o in outs])
+    agg = trimmed_ops.sweep_trimmed_aggregate(y.view(len(sizes), n, -1),
+                                              k_eff, c)
+    agg = torch.where((c > 0)[:, None], agg, 0.0)
+    trimmed = torch.where(c > 0, 2 * k_eff, 0)
+    return agg, torch.stack([torch.stack(counts), trimmed], dim=1)
 
 
 def robust_host_aggregate(stacked, fresh, tau, att, *, attack, robust,

@@ -5,12 +5,14 @@ shared-seed grid, head-to-head on resource-to-accuracy (port of
 The cells are ``zoo_spec``'s: one per selector and seed, every selector on
 bit-identical datasets, device populations and availability traces, so
 accuracy and resource differences come from the selection policy alone.
-Each cell runs serially through ``Simulator.run()``, on the GPU unless
-``--device`` names another, with the SAA server step through the CUDA
-kernels (``use_agg_kernel=True``, as ``repro_torch.quickstart`` runs it).
-The reference's batched runner, and its assert that batched runs equal
-serial ones, come with the sweeps (ROADMAP.md queue 1 item 9); its
-``--telemetry-dir`` with telemetry (item 12).
+The cells run batched (``repro_torch.sweeps.SweepRunner``: one lockstep
+batch a selector), then each serially through ``Simulator.run()``, and the
+two must agree: bit for bit on the CPU, in every host-decided summary field
+on the GPU (``repro_torch.sweeps.runner.exact_parity``).  They run on the
+GPU unless ``--device`` names another, with the SAA server step through
+the CUDA kernels (``use_agg_kernel=True``, as ``repro_torch.quickstart``
+runs it).  The reference's ``--telemetry-dir`` waits for telemetry
+(ROADMAP.md queue 1 item 12).
 
   PYTHONPATH=src python -m repro_torch.selector_zoo [--smoke]
   PYTHONPATH=src python -m repro_torch.selector_zoo --selectors random,oort,safa
@@ -51,6 +53,33 @@ def zoo_cells(selectors, smoke: bool, seeds) -> list:
     return [(f"selector={s}/seed={seed}", s, int(seed),
              SimConfig(**zoo_base(smoke), selector=s, seed=int(seed)))
             for s in selectors for seed in seeds]
+
+
+def sweep_cells(cells) -> list:
+    """The zoo's cells as ``repro_torch.sweeps`` cells."""
+    from repro_torch.sweeps import Cell
+    return [Cell(name, (("selector", sel), ("seed", seed)), cfg)
+            for name, sel, seed, cfg in cells]
+
+
+def run_batched(cells, device=None):
+    """The cells as lockstep sweep batches; returns (summaries, wall
+    seconds)."""
+    from repro_torch.sweeps import run_batched as run
+    results, wall = run(sweep_cells(cells), device=device)
+    return [dict(r.summary) for r in results], wall
+
+
+def assert_batched_equals_serial(batched, serial, device=None) -> None:
+    """Each cell's batched summary equals its serial one (``exact_parity``
+    decides whether in every field or in the host-decided ones)."""
+    from repro_torch.sim.engine import resolve_device
+    from repro_torch.sweeps.runner import HOST_KEYS, exact_parity
+    from repro_torch.sweeps import summaries_equal
+    keys = None if exact_parity(resolve_device(device)) else HOST_KEYS
+    for i, (a, b) in enumerate(zip(batched, serial)):
+        if not summaries_equal(a, b, keys):
+            raise AssertionError(f"zoo cell {i}: batched {a} != serial {b}")
 
 
 def run_serial(cells, device=None):
@@ -106,9 +135,12 @@ def main(argv=None) -> int:
     seeds = tuple(int(s) for s in args.seeds.split(","))
     cells = zoo_cells(selectors, args.smoke, seeds)
     print(f"# zoo race: {len(selectors)} selectors x {len(seeds)} shared "
-          f"seed(s) = {len(cells)} cells, serial")
+          f"seed(s) = {len(cells)} cells, batched and serial")
+    batched, wall_b = run_batched(cells, device=args.device)
     summaries, wall = run_serial(cells, device=args.device)
-    print(f"# serial {wall:.2f}s\n")
+    assert_batched_equals_serial(batched, summaries, device=args.device)
+    print(f"# batched {wall_b:.2f}s vs serial {wall:.2f}s; batched == "
+          "serial\n")
     print(text_table(cells, summaries))
     return 0
 

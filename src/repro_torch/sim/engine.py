@@ -174,6 +174,7 @@ class Substrate:
     meta: object = None
     model_fns: object = None
     _warmed: Optional[tuple] = None
+    _on_device: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @staticmethod
     def build(cfg: SimConfig, flat_params0: Optional[np.ndarray] = None
@@ -206,6 +207,19 @@ class Substrate:
                          rng_state=rng.bit_generator.state,
                          params0=params0, flat_params0=flat0,
                          flat_spec=flat_spec, meta=meta, model_fns=model_fns)
+
+    def device_data(self, device) -> tuple:
+        """(x_train, y_train, x_test, y_test) on ``device`` (labels int64),
+        uploaded once per substrate and device: every Simulator built on
+        this substrate, and every cell of a sweep batch, shares the copy."""
+        key = str(torch.device(device))
+        if key not in self._on_device:
+            d = self.data
+            self._on_device[key] = tuple(
+                torch.as_tensor(a, dtype=dt, device=device)
+                for a, dt in ((d.x_train, None), (d.y_train, torch.int64),
+                              (d.x_test, None), (d.y_test, torch.int64)))
+        return self._on_device[key]
 
     def warmed_fbank(self) -> tuple:
         """Pre-deployment forecaster history (paper App. A step 2):
@@ -297,6 +311,99 @@ def _attach_attack(cfg: SimConfig, fault_plan):
     return plan
 
 
+def evaluate_rows(model_fns, spec, rows, x_test, y_test):
+    """(accuracy (L,), loss (L,)) of the L flat models ``rows`` (L, D'),
+    read up to D, on one test set: the one evaluation every path runs (a
+    serial run is its L = 1 case)."""
+    n_rows = rows.shape[0]
+    return model_fns.evaluate(
+        unflatten_update(rows, spec), x_test.expand(n_rows, *x_test.shape),
+        y_test.expand(n_rows, *y_test.shape))
+
+
+class SharedData:
+    """One device copy of each distinct substrate's dataset, shared by a
+    batch's cells.  With one substrate its own copy serves (the copy its
+    Simulators hold); with several, their training sets are concatenated
+    once and a row's sample indices are offset to its substrate's block."""
+
+    def __init__(self, sims, device):
+        subs, self.sub_idx = [], []
+        for sim in sims:
+            if not any(sim.substrate is sb for sb in subs):
+                subs.append(sim.substrate)
+            self.sub_idx.append(next(j for j, sb in enumerate(subs)
+                                     if sb is sim.substrate))
+        self.tests = [sb.device_data(device)[2:] for sb in subs]
+        if len(subs) == 1:
+            self.x_train, self.y_train = subs[0].device_data(device)[:2]
+            offs = [0]
+        else:
+            self.x_train = torch.as_tensor(
+                np.concatenate([sb.data.x_train for sb in subs]), device=device)
+            self.y_train = torch.as_tensor(
+                np.concatenate([sb.data.y_train for sb in subs]),
+                dtype=torch.int64, device=device)
+            offs = np.cumsum([0] + [len(sb.data.y_train) for sb in subs[:-1]])
+        self.row_off = [int(offs[j]) for j in self.sub_idx]
+
+    def batches(self, bidx: torch.Tensor, steps: int, batch: int):
+        """(bx (R, steps, batch, dim), by (R, steps, batch)) of the packed,
+        already offset sample indices ``bidx`` (R, steps * batch)."""
+        r = bidx.shape[0]
+        return (self.x_train[bidx].view(r, steps, batch, -1),
+                self.y_train[bidx].view(r, steps, batch))
+
+    def evaluate(self, sims, params, cells):
+        """Host (accuracy, loss) arrays of ``cells`` (indices into
+        ``sims`` and the rows of ``params``), one batched evaluation per
+        substrate and one device-to-host copy."""
+        sim0 = sims[0]
+        parts, order = [], []
+        for j, (x_te, y_te) in enumerate(self.tests):
+            mine = [i for i in cells if self.sub_idx[i] == j]
+            if not mine:
+                continue
+            rows = params[mine] if len(sims) > 1 else params
+            parts.append(torch.stack(evaluate_rows(
+                sim0._model_fns, sim0._flat_spec, rows, x_te, y_te)))
+            order += mine
+        both = torch.cat(parts, dim=1).cpu().numpy()
+        at = {i: k for k, i in enumerate(order)}
+        pick = [at[i] for i in cells]
+        return both[0, pick], both[1, pick]
+
+
+def train_packed(sims, data: SharedData, params, plans, order):
+    """The packed training of a round: every surviving learner of the cells
+    ``order`` (with their ``plans``) in one batched call, each row from its
+    cell's row of ``params`` (S, D'), read up to D; a one-cell batch
+    broadcasts its row.  Returns (deltas (R, D') zero past D, l2 stats
+    (R,), {cell: its survivors' first packed row}), R = 0 giving (None,
+    None, ...)."""
+    cfg = sims[0].cfg
+    bidx, cell_of, first = [], [], {}
+    for i in order:
+        surv = sims[i].survivors(plans[i])[0]
+        first[i] = len(cell_of)
+        bidx.append(plans[i].bidx[surv] + data.row_off[i])
+        cell_of += [i] * len(surv)
+    if not cell_of:
+        return None, None, first
+    dev = params.device
+    ints = torch.as_tensor(np.concatenate(
+        [np.concatenate(bidx).ravel(), cell_of]).astype(np.int64), device=dev)
+    n_rows = len(cell_of)
+    b, rows = ints[:-n_rows].view(n_rows, -1), ints[-n_rows:]
+    bx, by = data.batches(b, cfg.local_steps, cfg.local_batch)
+    p0 = params[0] if len(sims) == 1 else params[rows]
+    deltas, _, l2 = ln.local_train_cohort(
+        p0, bx, by, spec=sims[0]._flat_spec, lr=cfg.local_lr,
+        prox_mu=cfg.prox_mu, loss=sims[0]._model_fns.loss,
+        out_dim=params.shape[1])
+    return deltas, l2, first
+
+
 class Simulator:
     def __init__(self, cfg: SimConfig, substrate: Optional[Substrate] = None,
                  device=None, fault_plan=None):
@@ -334,13 +441,10 @@ class Simulator:
         self.flat_opt_state = (yogi_init_flat(len(substrate.flat_params0),
                                               device=self.device)
                                if cfg.server_opt == "yogi" else None)
-        data = self.data      # device copies: batches are gathered there
-        self.x_train = torch.as_tensor(data.x_train, device=self.device)
-        self.y_train = torch.as_tensor(data.y_train, dtype=torch.int64,
-                                       device=self.device)
-        self.x_test = torch.as_tensor(data.x_test, device=self.device)
-        self.y_test = torch.as_tensor(data.y_test, dtype=torch.int64,
-                                      device=self.device)
+        # the dataset's device copy, shared through the substrate: batches
+        # are gathered there
+        (self.x_train, self.y_train, self.x_test,
+         self.y_test) = substrate.device_data(self.device)
         self.acct = Accounting()
         # the attack / robust descriptors (None: the plain path), and the
         # robust counters [rejected, trimmed] summed on the device and read
@@ -500,22 +604,6 @@ class Simulator:
         return (float(self.cfg.local_steps * self.cfg.local_batch * l2s[row])
                 if l2s is not None else 0.0)
 
-    def train_cohort(self, flat_row: torch.Tensor, bidx: torch.Tensor,
-                     out_dim=None):
-        """Local training of a cohort from ``flat_row`` (read up to D) in
-        one batched call: bidx (m, steps*batch) device int64 sample
-        indices.  Both substrates train through here, on the same rows, so
-        their deltas are bit-identical.  Returns (deltas (m, out_dim or D),
-        losses (m,), l2 stats (m,))."""
-        cfg = self.cfg
-        m = bidx.shape[0]
-        bx = self.x_train[bidx].view(m, cfg.local_steps, cfg.local_batch, -1)
-        by = self.y_train[bidx].view(m, cfg.local_steps, cfg.local_batch)
-        return ln.local_train_cohort(flat_row, bx, by, spec=self._flat_spec,
-                                     lr=cfg.local_lr, prox_mu=cfg.prox_mu,
-                                     loss=self._model_fns.loss,
-                                     out_dim=out_dim)
-
     @staticmethod
     def survivors(plan: RoundPlan):
         """(plan rows that do not drop out, plan row -> trained row or -1).
@@ -534,10 +622,10 @@ class Simulator:
         stay 0 and are never read)."""
         surv, pos = self.survivors(plan)
         l2s = np.zeros(plan.k, np.float32)
-        if not len(surv):
+        deltas, l2, _ = train_packed([self], SharedData([self], self.device),
+                                     self.flat_params[None], {0: plan}, [0])
+        if deltas is None:
             return None, pos, l2s
-        bidx = torch.as_tensor(plan.bidx[surv], device=self.device)
-        deltas, _, l2 = self.train_cohort(self.flat_params, bidx)
         l2s[surv] = l2.cpu().numpy()
         return deltas, pos, l2s
 
@@ -593,8 +681,10 @@ class Simulator:
                                             self.cfg.server_lr)
 
     def _evaluate(self):
-        params = unflatten_update(self.flat_params, self._flat_spec)
-        return self._model_fns.evaluate(params, self.x_test, self.y_test)
+        acc, loss = evaluate_rows(self._model_fns, self._flat_spec,
+                                  self.flat_params[None], self.x_test,
+                                  self.y_test)
+        return acc[0], loss[0]
 
     def _advance_round_state(self, r: int, t_start: float, t_end: float,
                              n_selected: int, n_fresh: int, n_stale: int):
@@ -660,7 +750,7 @@ class Simulator:
     def run(self, progress: bool = False) -> Accounting:
         if self.cfg.fused_rounds:
             from repro_torch.sim.pipeline import RoundPipeline
-            return RoundPipeline(self, progress=progress).run()
+            return RoundPipeline([self], progress=progress).run()[0]
         self._t_now = 0.0
         return self._run_loop(progress)
 

@@ -50,10 +50,15 @@ def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     return h @ params["w2"] + params["b2"]
 
 
+def _losses(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-example cross-entropy of ``logits`` against labels ``y``."""
+    logp = F.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, y[..., None])[..., 0]
+
+
 def xent(params: dict, x: torch.Tensor, y: torch.Tensor):
     """(mean loss over the last batch axis, per-example losses)."""
-    logp = F.log_softmax(mlp_apply(params, x), dim=-1)
-    losses = -torch.gather(logp, -1, y[..., None])[..., 0]
+    losses = _losses(mlp_apply(params, x), y)
     return losses.mean(dim=-1), losses
 
 
@@ -62,15 +67,19 @@ def local_train_cohort(flat_params: torch.Tensor, bx: torch.Tensor,
                        loss=xent, out_dim: int | None = None):
     """K local SGD steps for R learners at once (paper Alg. 2).
 
-    flat_params: (D,) fp32 global model in ``spec`` leaf order (a wider,
-    block-padded row is read up to D); bx: (R, steps, batch, dim); by:
-    (R, steps, batch) int64.  ``prox_mu > 0`` adds FedProx's proximal term.
-    Returns (deltas (R, out_dim or D) zero-padded past D, mean losses (R,),
-    sqrt(mean loss^2) stats (R,)), each averaged over the steps.
+    flat_params: the global model in ``spec`` leaf order, fp32: one (D,)
+    row every learner starts from, or (R, D) rows, one a learner (a sweep
+    batch gathers each row's cell model, as the reference's packed training
+    does); a wider, block-padded row is read up to D.  bx: (R, steps,
+    batch, dim); by: (R, steps, batch) int64.  ``prox_mu > 0`` adds
+    FedProx's proximal term.  Returns (deltas (R, out_dim or D) zero-padded
+    past D, mean losses (R,), sqrt(mean loss^2) stats (R,)), each averaged
+    over the steps.  Rows never mix, so a row's results do not depend on
+    the rows trained beside it.
     """
     d = spec.offsets[-1]
     r, steps = bx.shape[0], bx.shape[1]
-    p0 = flat_params[:d].expand(r, d)
+    p0 = flat_params[..., :d].expand(r, d)
     p = p0.clone()
     step_losses, step_l2s = [], []
     for k in range(steps):
@@ -86,17 +95,31 @@ def local_train_cohort(flat_params: torch.Tensor, bx: torch.Tensor,
     width = d if out_dim is None else int(out_dim)
     deltas = torch.zeros((r, width), dtype=torch.float32, device=p.device)
     deltas[:, :d] = p - p0
-    return (deltas, torch.stack(step_losses).mean(dim=0),
-            torch.stack(step_l2s).mean(dim=0))
+    return deltas, _step_mean(step_losses), _step_mean(step_l2s)
+
+
+def _step_mean(per_step: list) -> torch.Tensor:
+    """Mean of per-step (R,) vectors, elementwise in step order: a row's
+    value does not depend on R (a mean over a stacked (steps, R) block
+    picks its blocking by R)."""
+    total = per_step[0]
+    for x in per_step[1:]:
+        total = total + x
+    return total / len(per_step)
 
 
 @torch.no_grad()
 def evaluate(params: dict, x: torch.Tensor, y: torch.Tensor):
-    """(accuracy, mean loss) as 0-d tensors."""
+    """(accuracy, mean loss) of L models at once: leaves batched (L, ...),
+    x (L, N, dim), y (L, N) (a shared test set expanded); returns two (L,)
+    tensors.  A model's numbers do not depend on L: its logits come from
+    its own matrices of the bmm, its accuracy is an exact count, and its
+    loss is the mean of its own contiguous row of losses (a mean over an
+    (L, N) block picks its blocking by L)."""
     logits = mlp_apply(params, x)
-    acc = (logits.argmax(-1) == y).to(torch.float32).mean()
-    loss, _ = xent(params, x, y)
-    return acc, loss
+    acc = (logits.argmax(-1) == y).to(torch.float32).mean(dim=-1)
+    losses = _losses(logits, y)
+    return acc, torch.stack([row.mean() for row in losses])
 
 
 def sample_batch_indices(shard_idx: np.ndarray, n_steps: int, batch: int,

@@ -1,0 +1,144 @@
+"""Sweep demo / smoke entry point (port of ``python -m repro.sweeps``).
+
+  PYTHONPATH=src python -m repro_torch.sweeps --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.sweeps                  # GPU demo grid
+  PYTHONPATH=src python -m repro_torch.sweeps --list-selectors
+  PYTHONPATH=src python -m repro_torch.sweeps --selector random,oort,safa
+
+Expands a policy x SAA x hardware grid (or, with ``--selector``, a
+selector race under matched seeds), runs it batched, re-runs every cell
+serially to assert equal metrics, and prints the paper-style
+resource-to-accuracy table with the batched and serial wall times.
+Unlike the reference it writes a JSON payload only when ``--out`` names a
+path.  The reference's sharding, chunking, checkpoint and telemetry flags
+raise, naming the ROADMAP.md item that ports them.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+
+from repro_torch.sim.engine import resolve_device
+from repro_torch.sweeps import (SweepSpec, assert_parity, run_batched,
+                                run_serial)
+from repro_torch.sweeps.report import savings_line, text_table
+from repro_torch.sweeps.runner import exact_parity, unported
+
+# flag -> (what it asks for, the ROADMAP.md queue 1 item that ports it)
+UNPORTED_FLAGS = {
+    "sharded": ("sweep-axis sharding", 14),
+    "participant_shards": ("participant sharding", 14),
+    "rounds_per_dispatch": ("K-round chunks (rounds_per_dispatch > 1)", 8),
+    "checkpoint": ("sweep checkpoints", 10),
+    "resume": ("sweep resume (checkpoints)", 10),
+    "crash_after": ("crash injection", 10),
+    "telemetry_dir": ("telemetry", 12),
+}
+
+
+def demo_spec(smoke: bool) -> SweepSpec:
+    """The reference's demo grid (``repro.sweeps.__main__.demo_spec``)."""
+    if smoke:
+        return SweepSpec(
+            axes={"policy": ["random", "relay"], "saa": [False, True]},
+            base=dict(n_learners=60, rounds=8, eval_every=4, n_target=5,
+                      mapping="label_uniform"),
+            seeds=(0,))
+    return SweepSpec(
+        axes={"policy": ["random", "oort", "safa", "relay"],
+              "saa": [False, True],
+              "hardware": ["HS1", "HS3"]},
+        base=dict(n_learners=100, rounds=40, eval_every=10,
+                  mapping="label_uniform"),
+        seeds=(0, 1))
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--smoke", action="store_true", help="small CI grid")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU, required)")
+    ap.add_argument("--out", default=None,
+                    help="write the JSON payload (wall times, results) here")
+    ap.add_argument("--selector", default=None, metavar="A,B",
+                    help="race selection strategies: replaces the demo "
+                         "grid's policy axis with a selector axis")
+    ap.add_argument("--aggregator", default=None, metavar="A,B",
+                    help="add a robust-aggregator sweep axis")
+    ap.add_argument("--attack", default=None, metavar="X,Y",
+                    help="add a coordinated-attack sweep axis")
+    ap.add_argument("--attack-frac", type=float, default=0.25,
+                    help="attacker fraction of the population (with --attack)")
+    ap.add_argument("--list-selectors", action="store_true",
+                    help="print the selector strategy table and exit")
+    ap.add_argument("--list-aggregators", action="store_true",
+                    help="print the robust-aggregator strategy table and exit")
+    ap.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--participant-shards", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rounds-per-dispatch", type=int, default=1,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--resume", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--crash-after", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--telemetry-dir", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+
+    for flag, (what, item) in UNPORTED_FLAGS.items():
+        value = getattr(args, flag)
+        if value not in (None, False, 0) and not (
+                flag == "rounds_per_dispatch" and value == 1):
+            raise unported(what, item)
+    if args.list_selectors or args.list_aggregators:
+        if args.list_selectors:
+            from repro_torch.selection import describe_selectors
+            print(describe_selectors())
+        if args.list_aggregators:
+            from repro_torch.robust.aggregators import describe_aggregators
+            print(describe_aggregators())
+        return
+
+    spec = demo_spec(args.smoke)
+    if args.selector:
+        axes = {k: v for k, v in spec.axes.items() if k != "policy"}
+        spec.axes = {"selector": args.selector.split(","), **axes}
+    if args.aggregator:
+        kinds = args.aggregator.split(",")
+        spec.axes = dict(spec.axes, aggregator=kinds)
+        if any(k in ("krum", "multi_krum") for k in kinds):
+            spec.base = dict(spec.base, krum_f=max(
+                int(dict(spec.base).get("krum_f", 0)), 1))
+    if args.attack:
+        spec.axes = dict(spec.axes, attack=args.attack.split(","))
+        spec.base = dict(spec.base, attack_frac=args.attack_frac)
+    cells = spec.expand()
+    print(f"# sweep: {len(cells)} cells "
+          f"({' x '.join(f'{a}[{len(v)}]' for a, v in spec.axes.items())}"
+          f" x seeds[{len(spec.seeds)}])")
+    results, batched_wall = run_batched(cells, device=args.device)
+    serial, serial_wall = run_serial(cells, device=args.device)
+    exact = exact_parity(resolve_device(args.device))
+    assert_parity(results, serial, exact=exact)
+    speedup = serial_wall / max(batched_wall, 1e-9)
+    print(f"# batched {batched_wall:.2f}s vs serial {serial_wall:.2f}s "
+          f"({speedup:.1f}x), per-cell metrics equal"
+          + ("" if exact else " in their host fields") + "\n")
+    print(text_table(results))
+    if "policy" in spec.axes:
+        print()
+        print(savings_line(results, {"policy": "relay", "saa": True},
+                           {"policy": "random", "saa": False}))
+    if args.out:
+        payload = {"bench": "sweeps", "mode": "smoke" if args.smoke else "demo",
+                   "device": args.device or "cuda",
+                   "cells": len(cells), "batched_wall_s": batched_wall,
+                   "serial_wall_s": serial_wall, "speedup": speedup,
+                   "parity": True, "results": results.to_json_dict()}
+        pathlib.Path(args.out).write_text(json.dumps(payload, indent=2) + "\n")
+        print(f"\n# wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

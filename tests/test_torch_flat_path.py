@@ -107,13 +107,14 @@ def test_yogi_pad_columns_stay_zero():
     sim = Simulator(cfg, _substrate(cfg), device="cpu")
     pipe = RoundPipeline(sim)
     d = pipe.d
-    assert pipe.d_pad > d and pipe.opt_state["v"][:d].eq(1e-6).all()
+    assert pipe.d_pad > d and pipe.opt_state["v"][0, :d].eq(1e-6).all()
     sim._t_now = 0.0
     for r in range(cfg.rounds):
         pipe.step(r)
-        for t in (pipe.params[0], pipe.opt_state["m"], pipe.opt_state["v"]):
+        for t in (pipe.params[0], pipe.opt_state["m"][0],
+                  pipe.opt_state["v"][0]):
             assert not t[d:].any()
-    assert int(pipe.opt_state["t"]) > 0
+    assert int(pipe.opt_state["t"][0]) > 0
     pipe.finalize()
 
 

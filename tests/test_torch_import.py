@@ -55,7 +55,9 @@ def test_no_source_mentions_jax_or_reference_imports():
                  "configs.internlm2_1_8b", "configs.rwkv6_1_6b",
                  "launch.serve", "serve_model", "selection.safa",
                  "selection.oort", "selection.ucb", "selection.contribution",
-                 "selection.flips", "selector_zoo"):
+                 "selection.flips", "selector_zoo", "sweeps", "sweeps.grid",
+                 "sweeps.results", "sweeps.report", "sweeps.runner",
+                 "sweeps.__main__"):
         assert f"repro_torch.{name}" in names
 
 

@@ -92,7 +92,7 @@ def test_slice_rounds_match_reference_per_stage(camp):
     for r in range(kw["rounds"]):
         pipe.params[0, :d] = torch.from_numpy(np.array(ref.flat_params))
         plan = ref._begin_round(r)
-        rec = pipe.step(r)
+        rec, = pipe.step(r)
         assert (plan is None) == (rec is None)
         if plan is None:
             continue

@@ -274,14 +274,14 @@ def _port(kw, ref_sim, inject=None):
     pipe = RoundPipeline(sim)
     own, device_round = {}, pipe._device_round
 
-    def run_round(r, plan, sched):
-        l2 = device_round(r, plan, sched)
+    def run_round(r, work):
+        l2 = device_round(r, work)
         own[r] = None if l2 is None else l2.numpy().copy()
         if inject is None or l2 is None:
             return l2
-        return torch.from_numpy(inject[r][sim.survivors(plan)[0]])
+        return torch.from_numpy(inject[r][sim.survivors(work.plans[0])[0]])
     pipe._device_round = run_round
-    return sim, pipe.run(), own
+    return sim, pipe.run()[0], own
 
 
 @pytest.mark.parametrize("cell", list(CELLS))
@@ -405,3 +405,24 @@ def test_zoo_smoke_runs_every_selector_on_cpu(capsys):
     assert sorted(rows) == sorted(f"selector={s}" for s in sel.SELECTOR_TABLE)
     assert selector_zoo.main(["--selectors", "random,bogus"]) == 2
     assert "unknown selectors ['bogus']" in capsys.readouterr().out
+
+
+def test_zoo_batched_runner_equals_serial_runner():
+    """The zoo's batched runner (one lockstep batch a selector, two seeds a
+    batch) gives every cell its serial run's summary, bit for bit on the
+    CPU, and its records too."""
+    from repro_torch import selector_zoo
+    from repro_torch.sweeps import SweepRunner, summaries_equal
+    cells = selector_zoo.zoo_cells(list(sel.SELECTOR_TABLE), True, (0, 1))
+    batched, _ = selector_zoo.run_batched(cells, device="cpu")
+    serial, _ = selector_zoo.run_serial(cells, device="cpu")
+    assert len(batched) == len(serial) == 2 * len(sel.SELECTOR_TABLE)
+    for a, b in zip(batched, serial):
+        assert summaries_equal(a, b)
+    selector_zoo.assert_batched_equals_serial(batched, serial, device="cpu")
+    runner = SweepRunner(selector_zoo.sweep_cells(cells[:2]), device="cpu")
+    res = runner.run()
+    assert len(runner.batches()) == 1
+    for r, (*_, cfg) in zip(res, cells[:2]):
+        assert [_bits(x) for x in r.acct.records] == \
+            [_bits(x) for x in Simulator(cfg, device="cpu").run().records]
