@@ -50,16 +50,25 @@ From the repository root, with nothing built beforehand.  It
      rows a round kernel 1 saw and where the cluster kernel read U.
      Every kernel must launch exactly once per round that aggregated on
      its path (kernels 1-5 each time on the cluster kernel, the trimmed
-     mean on the variant its n takes), and no other kernel may launch;
-     then each campaign is timed
-     warm (rounds/s) and profiled (device busy share, host spans, top GPU
-     kernels); then the model zoo's serve path in bf16: internlm2-1.8b+swa
+     mean on the variant its n takes), and no other kernel may launch; a
+     launch inside a CUDA graph counts once per replay.  Every fused run
+     on kernel 1 or 2 must replay each of its rounds from a captured graph
+     (a bounded number of captures, each warm-up at most one launch of its
+     kernel), and the robust ones run eagerly; the fused quickstart
+     campaigns run again in K = 4 round chunks, bit for bit their K = 1
+     runs, with the same launches; then each campaign (and those K = 4
+     runs, and the same campaigns with their rounds dispatched eagerly, the
+     graphs off) is timed warm (rounds/s, and the graph captures' seconds
+     apart) and profiled (device busy share, host spans, top GPU kernels);
+     then the model zoo's serve path in bf16: internlm2-1.8b+swa
      prefill and logits (``swa_attention_bhsd``, every launch on its
      tensor-core kernel), rwkv6-1.6b prefill
      (``wkv6_bhsn``) and greedy requests of each;
   5. checks the result: finite parameters of the model's width; each flat
      campaign equal to its fused twin bit for bit (records, params and
-     robust counters); host records, attacker sets and robust counters
+     robust counters), each eager run to its graphed one; kernels 1 and 2
+     at every n the paths ran them at equal, bit for bit, to the same cells
+     padded with invalid zero rows; host records, attacker sets and robust counters
      equal to a CPU run of every campaign (the race's and fig07's too);
      coord_median ahead of attacked
      saa in final accuracy (the example's own pass rule); small RELAY,
@@ -284,6 +293,13 @@ TRAIN_GEMMS = {"x @ w1": (16, 64, 128), "h @ w2": (16, 128, 35),
 # kernels 1 and 2 at S cells, kernel 7 at S groups
 SWEEP_TIME_S = (1, 4, 16, 64)
 TRIM_TIME_S = (1, 8)
+# K-round chunks: the fused quickstart campaigns and the S = 64 sweep again
+# at K = CHUNK_K, held bit for bit to K = 1
+QUICK_FUSED = ("Random", "RELAY", "RELAY+YoGi")
+CHUNK_K = 4
+# the most graphs a serial campaign and a sweep batch may capture (one a
+# bucket: training rows x groups x operand rows x cache capacity)
+CAPTURE_MAX, SWEEP_CAPTURE_MAX = 24, 48
 
 
 def fail(msg):
@@ -1527,6 +1543,106 @@ def attacker_sets(sim):
     return [plan.attackers(r).tolist() for r in range(sim.cfg.rounds)]
 
 
+def drive(sim, eager=False):
+    """``sim.run()``, with a fused run's ``RoundPipeline`` stats (None for
+    the flat path).  ``eager`` turns the card's round graphs off: the same
+    padded rounds, dispatched op by op (this script's comparison only)."""
+    from repro_torch.sim.pipeline import RoundPipeline
+    if not sim.cfg.fused_rounds:
+        return sim.run(), None
+    pipe = RoundPipeline([sim])
+    if eager:
+        pipe.graphs, pipe.stats.graphed = None, False
+    acct, = pipe.run()
+    return acct, pipe.stats.as_dict()
+
+
+def graph_gate(name, stats, kernel, n_records, cap_max=CAPTURE_MAX):
+    """Fail unless a fused run on kernel 1 or 2 replayed every round from
+    its graphs (at most ``cap_max`` captures, none where an earlier run of
+    its structure captured them all; each warm-up at most one launch of
+    its kernel, on the cluster kernel), and any other fused run ran
+    eagerly."""
+    from repro_torch.kernels.staleness_agg import ops
+    graphed = kernel in (APPLY, AGG)
+    if stats["graphed"] != graphed:
+        fail(f"{name}: graphed {stats['graphed']}, expected {graphed}")
+    if not graphed:
+        return
+    warm, caps = stats["warmup_launches"], stats["graph_captures"]
+    if not (stats["graph_replays"] == stats["rounds"] == n_records
+            and caps <= cap_max
+            and set(warm) <= {kernel, ops.launch_key(kernel, "cluster")}
+            and warm.get(kernel, 0) == warm.get(ops.launch_key(kernel, "cluster"), 0)
+            <= caps):
+        fail(f"{name}: {stats['graph_replays']} replays over {stats['rounds']} "
+             f"rounds ({n_records} recorded), {caps} captures (at most "
+             f"{cap_max}), warm-up launches {warm}")
+
+
+def chunk_count(cfg, k, rounds) -> int:
+    """The K-round chunks (broken at evaluation rounds) holding one of
+    ``rounds``."""
+    chunks, cur = [], []
+    for r in range(cfg.rounds):
+        cur.append(r)
+        if len(cur) == k or (r + 1) % cfg.eval_every == 0 or r == cfg.rounds - 1:
+            chunks.append(cur)
+            cur = []
+    return sum(1 for c in chunks if set(c) & set(rounds))
+
+
+def same_run(torch, acct_a, sim_a, acct_b, sim_b) -> bool:
+    """Records, params and YoGi state bit for bit."""
+    if [record_bits(r) for r in acct_a.records] != \
+            [record_bits(r) for r in acct_b.records]:
+        return False
+    if not bits_equal(torch, sim_a.flat_params, sim_b.flat_params):
+        return False
+    opt_a, opt_b = sim_a.flat_opt_state, sim_b.flat_opt_state
+    return opt_a is None or all(
+        torch.equal(opt_a[k].contiguous().view(torch.int32),
+                    opt_b[k].contiguous().view(torch.int32)) for k in ("m", "v"))
+
+
+def check_padding(torch, ops, checks, ns, gen):
+    """Kernels 1 and 2 at n rows against the same cells padded with
+    invalid zero rows to the pipeline's operand bucket and to n + 1, bit
+    for bit (weights, aggregates, params as int32 views), at S = 1 and 16;
+    the padded bucket may cross into the cluster kernel's L2 branch."""
+    from repro_torch.core.aggregation import bucket_block
+    from repro_torch.sim.pipeline import N_BLOCK
+    for s_ in (1, 16):
+        for n in ns:
+            params, u, fresh, tau, valid, scal = saa_inputs(torch, s_, n, MAIN_D,
+                                                            "mixed", gen)
+            beta = scal[:, 0].contiguous()
+            p1 = params.clone()
+            _, w1 = ops.sweep_fused_staleness_apply(p1, u, fresh, tau, valid, scal)
+            a2, w2 = ops.sweep_fused_staleness_aggregate(u, fresh, tau, beta, valid)
+            for n_b in sorted({bucket_block(n, N_BLOCK), n + 1}):
+                if n_b == n:
+                    continue
+
+                def pad(t):
+                    out = t.new_zeros((s_, n_b) + tuple(t.shape[2:]))
+                    out[:, :n] = t
+                    return out
+                up, fp, tp, vp = pad(u), pad(fresh), pad(tau), pad(valid)
+                p2 = params.clone()
+                _, w1p = ops.sweep_fused_staleness_apply(p2, up, fp, tp, vp, scal)
+                a2p, w2p = ops.sweep_fused_staleness_aggregate(up, fp, tp, beta, vp)
+                torch.cuda.synchronize()
+                for what, a, b in (("apply params", p1, p2),
+                                   ("apply weights", w1, w1p[:, :n]),
+                                   ("aggregate", a2, a2p),
+                                   ("aggregate weights", w2, w2p[:, :n])):
+                    if not bits_equal(torch, a, b):
+                        fail(f"kernels 1-2: {what} at S={s_} n={n} differ from "
+                             f"n padded to {n_b}, bitwise")
+                checks.bits["kernels 1-2 n == padded n"] += 1
+
+
 # --- the sweep paths -------------------------------------------------------
 
 
@@ -1704,17 +1820,29 @@ def sweep_paths(torch, gen, checks, launches) -> dict:
         wall = time.perf_counter() - t0
         got = dict(LAUNCHES)
         rows = sweep_launch_gate(saa_ops, trim_ops, runner, res, got, kernel, name)
+        for idxs, st in zip(runner.batches(), runner.batch_stats):
+            graph_gate(name, st, kernel,
+                       len({x.round_idx for i in idxs for x in res[i].acct.records}),
+                       SWEEP_CAPTURE_MAX)
         launches.update(got)
         cell_rounds = sum(len(r.acct.records) for r in res)
+        cap = sum(st["graph_capture_s"] for st in runner.batch_stats)
         out["paths"][name] = {"cells": len(cells), "batches": len(runner.batches()),
                               "launches": got, "batch_rounds": len(rows),
                               "rows": dict(Counter(rows)),
                               "batched_s": wall, "cell_rounds": cell_rounds,
-                              "batched_cell_rounds_per_s": cell_rounds / wall}
+                              "batched_cell_rounds_per_s": cell_rounds / wall,
+                              "pipelines": runner.batch_stats, "capture_s": cap}
+        graphed = [st for st in runner.batch_stats if st["graphed"]]
         print(f"{name}: {len(cells)} cells in {len(runner.batches())} batches, "
               f"{got} over {len(rows)} batch-rounds that aggregated; "
               f"{cell_rounds} cell-rounds in {wall:.2f}s batched = "
-              f"{cell_rounds / wall:.1f} cell-rounds/s")
+              f"{cell_rounds / wall:.1f} cell-rounds/s" + (
+                  f"; {sum(st['graph_replays'] for st in graphed)} batch-rounds "
+                  f"replayed from {sum(st['graph_captures'] for st in graphed)} "
+                  f"graphs, captures {cap:.3f}s (the rest "
+                  f"{cell_rounds / (wall - cap):.1f} cell-rounds/s)" if graphed
+                  else ""))
         print("  " + rows_line(name, rows))
         return runner, res, rows
 
@@ -1768,10 +1896,24 @@ def sweep_paths(torch, gen, checks, launches) -> dict:
               f"sets ==; {bitwise} of {len(cells)} cells bit for bit; params max "
               f"abs diff {diff:.3g}")
 
-    # 1. S = 64, fused: kernel 1 once a batch-round
+    # 1. S = 64, fused: kernel 1 once a batch-round; then in K-round chunks,
+    # bit for bit the K = 1 sweep
     grid = cells_of(SWEEP_GRID)
     runner64, res64, rows64 = batched("sweep S=64 fused", grid, APPLY)
     profiled("sweep S=64 fused", grid, runner64, res64)
+    name_k = f"sweep S=64 fused K={CHUNK_K}"
+    grid_k = [dataclasses.replace(c, config=dataclasses.replace(
+        c.config, rounds_per_dispatch=CHUNK_K)) for c in grid]
+    runner_k, res_k, _ = batched(name_k, grid_k, APPLY)
+    for i, c in enumerate(grid):
+        if not (summaries_equal(dict(res_k[i].summary), dict(res64[i].summary))
+                and same_run(torch, res64[i].acct, runner64.sims[i],
+                             res_k[i].acct, runner_k.sims[i])):
+            fail(f"{name_k}: cell {c.name} differs from the K = 1 sweep")
+    chunks = [st["dispatches"]["round"] for st in runner_k.batch_stats]
+    print(f"  {name_k} == K = 1 sweep, bit for bit (summaries, records, params) "
+          f"in all {len(grid)} cells; chunks a batch {chunks}")
+    profiled(name_k, grid_k, runner_k, res_k)
     serial64 = serially("sweep S=64 fused", grid)
     gate_serial("sweep S=64 fused", grid, runner64, res64, serial64)
     # the 16 seed-0 HS1 / HS3 cells' host records against a CPU run
@@ -1824,16 +1966,16 @@ def sweep_paths(torch, gen, checks, launches) -> dict:
     cells = cells_of(dict(axes=SWEEP16_AXES, base=dict(
         SWEEP_BASE, target_accuracy=target), seeds=(0,)))
     rounds_in = Counter()        # device rounds each cell took part in
-    train = pl.train_packed
+    pack = pl.RoundPipeline._pack
 
-    def recording(sims, data, params, plans, order):
-        rounds_in.update(id(sims[i]) for i in order)
-        return train(sims, data, params, plans, order)
-    pl.train_packed = recording
+    def recording(pipe, work):
+        rounds_in.update(id(pipe.sims[i]) for i in work.order)
+        return pack(pipe, work)
+    pl.RoundPipeline._pack = recording
     try:
         runner, res, _ = batched("sweep early stop S=16", cells, APPLY)
     finally:
-        pl.train_packed = train
+        pl.RoundPipeline._pack = pack
     stopped = [i for i, r in enumerate(res) if r.summary["stopped_early"]]
     before = [i for i in stopped if res[i].acct.records[-1].round_idx < last]
     if not before:
@@ -2013,7 +2155,7 @@ def main():
         LAUNCHES.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        gpu[name] = sims[name].run()
+        gpu[name], stats = drive(sims[name])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got, n_agg = dict(LAUNCHES), aggregated(gpu[name])
@@ -2029,15 +2171,46 @@ def main():
                  "that aggregated, each on the cluster kernel for kernels 1-4 "
                  "and on the variant its n takes for the trimmed mean, and no "
                  "other kernel)")
+        if stats is not None:
+            graph_gate(name, stats, kernel, len(gpu[name].records))
         launches.update(got)
         summ = gpu[name].summary()
         report["paths"][name] = {
             "launches": got, "aggregated_rounds": n_agg, "first_run_s": wall,
             "final_accuracy": summ["final_accuracy"],
             "robust_rejected": summ["robust_rejected"],
-            "robust_trimmed": summ["robust_trimmed"]}
+            "robust_trimmed": summ["robust_trimmed"], "pipeline": stats}
         print(f"{name}: {got} over {n_agg} aggregating rounds, {wall:.2f}s "
-              "first run")
+              "first run" + ("" if stats is None else (
+                  f"; {stats['graph_replays']} rounds replayed from "
+                  f"{stats['graph_captures']} graphs" if stats["graphed"]
+                  else "; eager rounds")))
+    # K-round chunks: the fused quickstart campaigns at K = CHUNK_K, through
+    # the same graphs, bit for bit their K = 1 runs, the same launches
+    report["chunks"] = {}
+    for name in QUICK_FUSED:
+        kw, kernel = runs[name]
+        cfg = SimConfig(**kw, rounds_per_dispatch=CHUNK_K)
+        sim = Simulator(cfg, device="cuda")
+        LAUNCHES.clear()
+        acct, stats = drive(sim)
+        got = dict(LAUNCHES)
+        graph_gate(f"{name} K={CHUNK_K}", stats, kernel, len(acct.records))
+        want = chunk_count(cfg, CHUNK_K, [r.round_idx for r in acct.records])
+        if got != report["paths"][name]["launches"]:
+            fail(f"{name} K={CHUNK_K}: launches {got}, the K = 1 run's "
+                 f"{report['paths'][name]['launches']}")
+        if stats["dispatches"]["round"] != want:
+            fail(f"{name} K={CHUNK_K}: {stats['dispatches']['round']} chunks, "
+                 f"expected {want}")
+        if not same_run(torch, gpu[name], sims[name], acct, sim):
+            fail(f"{name} K={CHUNK_K}: differs from K = 1, bitwise")
+        launches.update(got)
+        report["chunks"][name] = {"launches": got, "pipeline": stats}
+        print(f"{name} K={CHUNK_K}: {stats['dispatches']['round']} chunks of "
+              f"{stats['rounds']} rounds, {stats['graph_replays']} replays of "
+              f"{stats['graph_captures']} graphs, {got}; records and params == "
+              "K = 1, bitwise")
     print(table(gpu))
     print(f"--- robustness race ({RACE['attack']}, attack_frac "
           f"{RACE['attack_frac']}, scale {RACE['attack_scale']}) ---")
@@ -2130,44 +2303,81 @@ def main():
           f"trimmed mean {trim_ns} at D={TRIM_D[-1]}): "
           f"{sum(checks.n.values()) - before} more checks; max abs err "
           + ", ".join(f"{k} {checks.err[k]:.3g}" for k in REPLACES))
+    # the graphed rounds pad a group's rows: kernels 1 and 2 at every n the
+    # paths ran them at, and around the shared-memory edge, against padded n
+    pad_ns = sorted(set(ns[APPLY]) | set(ns[AGG]) | race_ns | {27, 28, 29, 33})
+    check_padding(torch, saa_ops, checks, pad_ns, gen)
+    print(f"kernels 1-2 at n == at n padded with invalid zero rows (to the "
+          f"pipeline's operand bucket and to n + 1), bitwise, in "
+          f"{checks.bits['kernels 1-2 n == padded n']} checks (n in {pad_ns}, "
+          f"S = 1 and 16)")
 
     lap("FL paths and checks at their n")
-    # per-campaign rounds/s: a second, warm run of each, then a profile
+    # per-campaign rounds/s: a second, warm run of each, then a profile; the
+    # fused quickstart campaigns also at K = CHUNK_K and with their rounds
+    # dispatched eagerly (graphs off: this script's comparison only)
+    timed = {name: (kw, False) for name, (kw, _) in runs.items()}
+    for name in QUICK_FUSED:
+        timed[f"{name} K={CHUNK_K}"] = (dict(runs[name][0],
+                                             rounds_per_dispatch=CHUNK_K), False)
+        timed[f"{name} eager"] = (runs[name][0], True)
     report["campaigns"] = {}
-    for name, (kw, _) in runs.items():
+    for name, (kw, eager) in timed.items():
         sim = Simulator(SimConfig(**kw), device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        acct = sim.run()
+        acct, stats = drive(sim, eager)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         summ = acct.summary()
+        if eager and not same_run(torch, gpu[name[:-len(" eager")]],
+                                  sims[name[:-len(" eager")]], acct, sim):
+            fail(f"{name}: the eager rounds differ from the graphed ones, bitwise")
         report["campaigns"][name] = {
             "rounds": len(acct.records), "seconds": secs,
             "rounds_per_s": len(acct.records) / secs,
             "final_accuracy": summ["final_accuracy"],
             "resource_used": summ["resource_used"],
-            "waste_fraction": summ["waste_fraction"]}
+            "waste_fraction": summ["waste_fraction"], "pipeline": stats}
+        graphs = ""
+        if stats is not None and stats["graphed"]:
+            cap = stats["graph_capture_s"]
+            report["campaigns"][name].update(
+                capture_s=cap, replay_rounds_per_s=len(acct.records) / (secs - cap))
+            graphs = (f" ({stats['graph_captures']} captures took {cap:.3f}s; "
+                      f"the rest {len(acct.records) / (secs - cap):.1f} rounds/s)")
         print(f"{name}: {len(acct.records)} rounds in {secs:.3f}s = "
-              f"{len(acct.records) / secs:.1f} rounds/s")
-        prof = profile_campaign(torch, Simulator(SimConfig(**kw),
-                                                 device="cuda").run)
-        report["campaigns"][name]["profile"] = prof
-        idle = prof["device_idle_share"]
-        print(f"{name} profile: {prof['gpu_kernels']} GPU kernels, device busy "
-              f"{prof['device_busy_ms']:.1f} of {prof['wall_ms']:.1f} ms "
-              f"(idle share {'not measured' if idle is None else f'{idle:.3f}'})")
-        print("  host spans (CPU ms): " + ", ".join(
-            f"{k} {v:.1f}" for k, v in sorted(prof["host_spans_ms"].items())))
-        for kname, ms in prof["top_kernels_ms"].items():
-            print(f"  {ms:9.3f} ms  {kname[:90]}")
+              f"{len(acct.records) / secs:.1f} rounds/s{graphs}")
+
+    def profile_campaigns():
+        """A profile of each timed campaign, run again; taken after the
+        kernel times (many traces in a process broke a later profiler
+        read).  The busy time is also set against the unprofiled run's
+        wall: the profiler's host cost inflates a graphed run's wall most."""
+        for name, (kw, eager) in timed.items():
+            prof = profile_campaign(torch, lambda: drive(
+                Simulator(SimConfig(**kw), device="cuda"), eager)[0])
+            camp = report["campaigns"][name]
+            prof["busy_share_of_unprofiled_wall"] = (
+                prof["device_busy_ms"] / (camp["seconds"] * 1e3))
+            camp["profile"] = prof
+            idle = prof["device_idle_share"]
+            print(f"{name} profile: {prof['gpu_kernels']} GPU kernels, device "
+                  f"busy {prof['device_busy_ms']:.1f} of {prof['wall_ms']:.1f} ms "
+                  f"(idle share {'not measured' if idle is None else f'{idle:.3f}'}"
+                  f"; {prof['busy_share_of_unprofiled_wall']:.3f} of the "
+                  f"unprofiled run's {camp['seconds'] * 1e3:.1f} ms)")
+            print("  host spans (CPU ms): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in sorted(prof["host_spans_ms"].items())))
+            for kname, ms in prof["top_kernels_ms"].items():
+                print(f"  {ms:9.3f} ms  {kname[:90]}")
 
     print("--- fig07 SAFA vs RELAY (label_uniform, DL, 688 Mbit) ---")
     for name in FIG07_CELLS:
         c = report["campaigns"][name]
         print(f"{name}: resource_used {c['resource_used']:.1f} s, waste_fraction "
               f"{c['waste_fraction']:.4f}, final accuracy {c['final_accuracy']:.4f}")
-    lap("FL campaigns timed and profiled")
+    lap("FL campaigns timed")
     # --- 4. the result is right ----------------------------------------
     d_model = sims["Random"].flat_params.numel()
     for name, a in gpu.items():
@@ -2342,7 +2552,9 @@ def main():
           f"{times['flat_pad']['device_ms']:.4f}) per round")
     times.update(time_lm_kernels(torch, gen))
     lap("kernel times")
-    profile_sweeps()          # last: a profile of each sweep path's batch
+    profile_campaigns()       # last: the campaigns' and sweeps' profiles
+    lap("FL campaign profiles")
+    profile_sweeps()
     lap("sweep profiles")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in report["phase_s"].items()))
     report.update(times=times, launches=dict(launches),

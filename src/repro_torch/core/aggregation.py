@@ -89,8 +89,9 @@ def bucket_pow2(n: int) -> int:
 
 def bucket_block(n: int, block: int) -> int:
     """Power-of-two up to ``block``, then multiples of ``block`` (the
-    reference's two-tier padding bucket).  The port's round pipeline runs
-    eagerly on exact shapes; padding never changes a result."""
+    reference's two-tier padding bucket): the port's training rows, and
+    the fused pipeline's groups and operand rows under the SAA kernels.
+    Padding never changes a result."""
     if n <= block:
         return bucket_pow2(n)
     return block * ((n + block - 1) // block)

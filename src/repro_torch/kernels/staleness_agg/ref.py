@@ -40,7 +40,17 @@ def saa_weights(num, den, fresh, tau, valid, beta, rule: str):
     w_stale = SCALING_RULES[rule](tau, lam, lam_max, beta[:, None])
     w = torch.where(fresh, 1.0, w_stale)
     w = torch.where(valid, w, 0.0)
-    return w / torch.clamp(w.sum(dim=1, keepdim=True), min=EPS)
+    return w / torch.clamp(row_order_sum(w), min=EPS)
+
+
+def row_order_sum(w):
+    """(S, n) -> (S, 1): each cell's weights summed in row order, so
+    padding rows (exact zeros) keep a cell's bits, as in the kernels' fixed
+    lane trees (``w.sum`` picks its blocking by n)."""
+    total = torch.zeros_like(w[:, :1])
+    for i in range(w.shape[1]):
+        total = total + w[:, i:i + 1]
+    return total
 
 
 def host_weights(num, den, fresh, tau, beta: float, rule: str):

@@ -32,8 +32,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core.aggregation import (fedavg_apply, flat_dim,
-                                          flatten_update, make_flat_spec,
+from repro_torch.core.aggregation import (bucket_block, fedavg_apply,
+                                          flat_dim, flatten_update,
+                                          make_flat_spec,
                                           stale_synchronous_aggregate_flat,
                                           unflatten_update, yogi_apply_flat,
                                           yogi_init_flat)
@@ -137,7 +138,6 @@ _UNPORTED = (
     (lambda c: not c.fast_path, "the legacy pytree engine (fast_path=False)", 15),
     (lambda c: c.guard, "guarded aggregation / quorum", 10),
     (lambda c: c.telemetry != 0, "telemetry", 12),
-    (lambda c: c.rounds_per_dispatch != 1, "K-round chunks (rounds_per_dispatch > 1)", 8),
     (lambda c: bool(c.shard_participants), "participant sharding", 14),
     (lambda c: c.benchmark in part.TOKEN_BENCHMARKS, "token benchmarks", 2),
     (lambda c: c.model not in MODEL_TABLE, "learner models other than mlp", 13),
@@ -374,34 +374,63 @@ class SharedData:
         return both[0, pick], both[1, pick]
 
 
-def train_packed(sims, data: SharedData, params, plans, order):
-    """The packed training of a round: every surviving learner of the cells
-    ``order`` (with their ``plans``) in one batched call, each row from its
-    cell's row of ``params`` (S, D'), read up to D; a one-cell batch
-    broadcasts its row.  Returns (deltas (R, D') zero past D, l2 stats
-    (R,), {cell: its survivors' first packed row}), R = 0 giving (None,
-    None, ...)."""
-    cfg = sims[0].cfg
+# training rows a round: a power of two up to ROW_BLOCK, then multiples of
+# it (``bucket_block``); the padding rows repeat row 0 and are discarded
+ROW_BLOCK = 64
+
+
+def pack_rows(sims, data: SharedData, plans, order):
+    """The packed training rows of a round: every surviving learner of the
+    cells ``order`` (with their ``plans``), cell by cell.  Returns (sample
+    indices (R_b, steps*batch) offset to each row's substrate block, the
+    rows' cells (R_b,), {cell: its survivors' first packed row}, R): R
+    real rows padded to R_b = ``bucket_block(R, ROW_BLOCK)`` by repeating
+    row 0 (None, None, ... when R = 0).  Every path pads alike: cuBLAS's
+    batched GEMM may give a row other bits at another row count."""
     bidx, cell_of, first = [], [], {}
     for i in order:
         surv = sims[i].survivors(plans[i])[0]
         first[i] = len(cell_of)
         bidx.append(plans[i].bidx[surv] + data.row_off[i])
         cell_of += [i] * len(surv)
-    if not cell_of:
-        return None, None, first
-    dev = params.device
-    ints = torch.as_tensor(np.concatenate(
-        [np.concatenate(bidx).ravel(), cell_of]).astype(np.int64), device=dev)
-    n_rows = len(cell_of)
-    b, rows = ints[:-n_rows].view(n_rows, -1), ints[-n_rows:]
-    bx, by = data.batches(b, cfg.local_steps, cfg.local_batch)
-    p0 = params[0] if len(sims) == 1 else params[rows]
+    n = len(cell_of)
+    if not n:
+        return None, None, first, 0
+    pad = bucket_block(n, ROW_BLOCK) - n
+    b = np.concatenate(bidx)
+    return (np.concatenate([b, np.repeat(b[:1], pad, axis=0)]),
+            np.asarray(cell_of + cell_of[:1] * pad, np.int64), first, n)
+
+
+def train_rows(sims, data: SharedData, params, bidx, cells):
+    """The batched local training of packed rows: sample indices ``bidx``
+    (R, steps*batch), each row from its cell's row ``cells`` (R,) of
+    ``params`` (S', D'), read up to D; a one-cell batch broadcasts row 0.
+    Returns (deltas (R, D') zero past D, l2 stats (R,))."""
+    cfg = sims[0].cfg
+    bx, by = data.batches(bidx, cfg.local_steps, cfg.local_batch)
+    p0 = params[0] if len(sims) == 1 else params[cells]
     deltas, _, l2 = ln.local_train_cohort(
         p0, bx, by, spec=sims[0]._flat_spec, lr=cfg.local_lr,
         prox_mu=cfg.prox_mu, loss=sims[0]._model_fns.loss,
         out_dim=params.shape[1])
-    return deltas, l2, first
+    return deltas, l2
+
+
+def train_packed(sims, data: SharedData, params, plans, order):
+    """The packed training of a round (``pack_rows``, ``train_rows``) in
+    one host-to-device copy.  Returns (deltas (R, D') zero past D, l2
+    stats (R,), {cell: its survivors' first packed row}), R = 0 giving
+    (None, None, ...)."""
+    b, cells, first, n = pack_rows(sims, data, plans, order)
+    if not n:
+        return None, None, first
+    r_b = len(cells)
+    ints = torch.as_tensor(np.concatenate([b.ravel(), cells]),
+                           device=params.device)
+    deltas, l2 = train_rows(sims, data, params,
+                            ints[:-r_b].view(r_b, -1), ints[-r_b:])
+    return deltas[:n], l2[:n], first
 
 
 class Simulator:

@@ -1,33 +1,59 @@
-"""Device-resident round pipeline for S >= 1 lockstep simulations (port of
-the K = 1, unsharded case of ``repro.sim.pipeline``).
+"""Device-resident round pipeline for S >= 1 lockstep simulations, in
+K-round chunks (port of the unsharded case of ``repro.sim.pipeline``).
 
 ``RoundPipeline`` drives one Simulator (``Simulator.run()`` passes
-``[self]``) or a sweep batch of compatible ones (``pipeline_key``): every
-round, each live cell's host state machine runs first, then ONE device
-round serves every cell:
+``[self]``) or a sweep batch of compatible ones (``pipeline_key``) in
+chunks of up to K = ``SimConfig.rounds_per_dispatch`` rounds, broken at
+``eval_every`` boundaries.  A chunk is:
 
-  1. the cohorts' local batches are gathered on the device from one copy
-     of each distinct substrate's dataset (the host sends one packed int64
-     index tensor a round);
-  2. every live cell's surviving learners train in one batched call, each
-     row from its own cell's model (a serial run broadcasts its one row);
-  3. straggler rows are scattered into the batch's one device stale cache
-     *before* the landing rows are gathered out of it — the slots freed by
-     a round's landings (any cell's) are quarantined for one round, so a
-     round's scatter slots never collide with its gather slots;
-  4. the round's G aggregation groups (the live cells with fresh or landing
-     rows) form one (G, n, D) operand, padded with invalid zero rows to the
-     round's largest group, and the server step runs on it: under
-     ``use_agg_kernel`` FedAvg is ONE launch of
+  1. the host half of each of its rounds, in order (``_schedule``): every
+     live cell's plan, schedule, stale-cache slots (the slots freed by a
+     round's landings are quarantined for one round, so a round's scatter
+     slots never collide with its gather slots), selector feedback and
+     record.  Nothing in it reads an update value, so K rounds are
+     scheduled before any of their device work runs;
+  2. one packed int64 index block a round (``_pack``), laid out by the
+     round's padded shape (``graphs.Bucket``), and one host-to-device copy
+     of the chunk's blocks;
+  3. each round's device work (``_device_round``), from its block alone:
+     the survivors' local batches gathered from one copy of each distinct
+     substrate's dataset and trained in one batched call, each row from
+     its cell's model; every trained row scattered into the batch's one
+     device stale cache (a straggler into its slot, any other row into the
+     trash slot) *before* the operand gathers its landing rows; the
+     round's groups (the cells with fresh or landing rows) as one (G, n, D)
+     operand, a group's rows first, then invalid zero rows; and the server
+     step: under ``use_agg_kernel`` FedAvg is ONE launch of
      ``sweep_fused_staleness_apply`` (kernel 1) with per-cell ``(beta,
      server_lr)`` rows, YoGi one launch of ``sweep_fused_staleness_aggregate``
      (kernel 2) before its batched elementwise step; an attacked or robust
      batch runs ``robust.aggregators.robust_sweep`` (the coordinate-wise
      kinds under ``use_agg_kernel``: ONE launch of kernel 7 for the G
      groups); without the kernels each group runs ``core.aggregation``'s
-     torch path on its own rows;
-  5. on ``eval_every`` rounds the cells are evaluated in one batched call
-     per substrate.
+     torch path on its own rows.  A round in which no cell aggregates runs
+     no server step;
+  4. at an ``eval_every`` boundary, the evaluation of every live cell in
+     one batched call per substrate, and the early stops.
+
+On the card a round of a non-robust batch under the SAA kernels is
+replayed from a CUDA graph captured once per bucket (``graphs.py``): one
+copy of its block into the graph's input and one graph launch.  The graphs
+and the buffers they read outlive the run: the next pipeline of the same
+static structure refills the buffers and replays them.  Attacked,
+robust and ``use_agg_kernel=False`` batches run the same rounds eagerly
+(``stats.as_dict()["graphed"]`` says which).  On the CPU every round runs
+eagerly on the same padded blocks.
+
+Padding (``bucket_block``): training rows to a power of two up to 64,
+then multiples of 64 (``engine.ROW_BLOCK``, shared with the per-stage
+paths); under the SAA kernels, groups to a power of two up to 64, then
+multiples of 64 (``G_BLOCK``), and a group's operand rows to a power of
+two up to 8, then multiples of 8 (``N_BLOCK``).  The other routes keep the
+round's exact groups and rows, which their per-group steps read.  A padding
+training row repeats row 0 and scatters into the trash slot; a padding
+group is all-invalid and reads and writes the params' scratch row (S), so
+results do not depend on the block sizes.  A round's shape depends only on
+that round, so K-round chunks run the very rounds K = 1 runs.
 
 Every decision of a round depends only on durations and dropouts, never on
 update values, so the host side equals the reference's.  Per-cell results
@@ -39,15 +65,15 @@ their shape (row norms and sums over D, a mean over an (L, N) block) run
 per group on the group's own rows.
 
 A ``needs_feedback`` selector (oort, ucb, contribution) reads each
-arrival's statistical utility from the training's per-row l2 stats: its
-batch copies the round's stats to the host once, after the device round
-(span ``round.feedback``), then applies each cell's feedback and caches its
-stragglers, cell by cell in batch order, before the next round's selection.
-Any other selector gets its feedback (utility 0) before the device round.
+arrival's statistical utility from the training's per-row l2 stats before
+the next round's selection, so its batch runs one-round chunks: the
+round's stats are copied to the host once, after its device round (span
+``round.feedback``), then each cell's feedback is applied and its
+stragglers cached, cell by cell in batch order.  Any other selector gets
+its feedback (utility 0) in the host half.
 
 A cell whose evaluation reaches its ``target_accuracy`` leaves the live
-set: no host stage, no rows, no group, no evaluation.  Eager torch has no
-shape buckets to repack, so leaving is dropping the cell's index.
+set: no host stage, no rows, no group, no evaluation.
 
 The params rows, the cache rows and the YoGi state are kept ``d_pad`` wide
 under the SAA kernels (D rounded up to their 2048-column block); the pad
@@ -60,12 +86,14 @@ change their bits.
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core.aggregation import (flat_dim, no_stale_aggregate,
+from repro_torch.core.aggregation import (bucket_block, flat_dim,
+                                          no_stale_aggregate,
                                           weights_and_aggregate_by_id,
                                           yogi_apply_flat, yogi_init_flat)
 from repro_torch.core.stale_cache import DeviceStaleCache
@@ -77,7 +105,12 @@ from repro_torch.robust import robust_key
 from repro_torch.robust.aggregators import robust_sweep
 from repro_torch.selection.registry import selector_key
 from repro_torch.sim.engine import (SharedData, _InFlight, agg_lids,
-                                   train_packed)
+                                   pack_rows, train_rows)
+from repro_torch.sim.graphs import (Bucket, RoundGraphs, acquire, release,
+                                   upload)
+
+G_BLOCK = 64      # aggregation groups a round under the SAA kernels
+N_BLOCK = 8       # operand rows a group under the SAA kernels
 
 
 def pipeline_key(cfg) -> tuple:
@@ -96,17 +129,44 @@ def pipeline_key(cfg) -> tuple:
 
 
 @dataclasses.dataclass
+class PipelineStats:
+    """Dispatch, transfer and graph counters of a pipeline run (the
+    reference's ``PipelineStats`` counters; its telemetry registry is not
+    ported).  ``graph_capture_s``: host seconds in warm-ups and captures."""
+    rounds: int = 0
+    dispatches: Counter = dataclasses.field(default_factory=Counter)
+    rounds_per_dispatch: int = 1
+    feedback_fetches: int = 0
+    h2d_bytes: int = 0
+    graphed: bool = False
+    graph_captures: int = 0
+    graph_replays: int = 0
+    graph_capture_s: float = 0.0
+    warmup_launches: Counter = dataclasses.field(default_factory=Counter)
+
+    def as_dict(self) -> dict:
+        out = dataclasses.asdict(self)
+        out["dispatches"] = dict(self.dispatches)
+        out["warmup_launches"] = dict(self.warmup_launches)
+        return out
+
+
+@dataclasses.dataclass
 class RoundWork:
-    """One round's host outcome for the cells that took part: their plans,
-    schedules and appended records; the device round and the evaluation
-    remain."""
+    """One scheduled round of a chunk: the host state machines have run
+    past it (plans, schedules, slots, records); ``_pack`` adds its index
+    block, the device round and the evaluation remain."""
     r: int
     order: list          # cells with a plan this round, in batch order
     plans: dict
     scheds: dict
     recs: dict
-    first: dict = None   # cell -> its survivors' first packed row (set by
-                         # the device round)
+    first: dict = None   # cell -> its survivors' first packed row
+    n_rows: int = 0      # trained rows (before padding)
+    groups: list = None  # cells that aggregate, in batch order
+    sizes: list = None   # their operand rows
+    bucket: Bucket = None
+    block: object = None  # the packed indices (host numpy, then device)
 
 
 def _quarantine_frees(order, scheds) -> list:
@@ -133,11 +193,14 @@ class RoundPipeline:
         self.d = flat_dim(self.spec)
         self.attack, self.robust = attack_key(cfg0), robust_key(cfg0)
         robust = self.attack is not None or self.robust is not None
+        # the SAA kernels' route: padded shapes, graphed on the card
+        self.kernel_route = cfg0.use_agg_kernel and not robust
         self.d_pad = (self.d + (-self.d) % saa_ops.D_BLK
-                      if cfg0.use_agg_kernel and not robust else self.d)
-        s = len(sims)
-        # (S, d_pad): the kernels' (S, D) params operand, a row a cell
-        self.params = torch.zeros((s, self.d_pad), dtype=torch.float32,
+                      if self.kernel_route else self.d)
+        self.s = s = len(sims)
+        # (S + 1, d_pad): the kernels' (S, D) params operand, a row a cell,
+        # and the scratch row that padding groups read and write
+        self.params = torch.zeros((s + 1, self.d_pad), dtype=torch.float32,
                                   device=dev)
         for i, sim in enumerate(sims):
             self.params[i, :self.d] = sim.flat_params
@@ -147,52 +210,117 @@ class RoundPipeline:
         self.yogi = cfg0.server_opt == "yogi"
         if self.yogi:
             st = yogi_init_flat(self.d, device=dev, width=self.d_pad)
-            self.opt_state = {"m": st["m"].repeat(s, 1),
-                              "v": st["v"].repeat(s, 1),
-                              "t": torch.zeros(s, dtype=torch.int32,
+            self.opt_state = {"m": st["m"].repeat(s + 1, 1),
+                              "v": st["v"].repeat(s + 1, 1),
+                              "t": torch.zeros(s + 1, dtype=torch.int32,
                                                device=dev)}
         else:
             self.opt_state = None
-        # per-cell (beta, server_lr) rows: the kernel's scal operand
+        # per-cell (beta, server_lr) rows, the scratch row a copy of cell
+        # 0's: the kernel's scal operand
         self._scal = torch.tensor([[sim.cfg.beta, sim.cfg.server_lr]
-                                   for sim in sims], dtype=torch.float32,
-                                  device=dev)
+                                   for sim in sims + sims[:1]],
+                                  dtype=torch.float32, device=dev)
         self.robust_counts = torch.zeros((s, 2), dtype=torch.int32,
                                          device=dev)
         self.data = SharedData(sims, dev)
         self.fetch_l2s = sims[0]._sel_spec.needs_feedback
+        # a feedback selector's stats are device data the next round's
+        # selection reads: its batch runs one-round chunks
+        self.k_rounds = (1 if self.fetch_l2s
+                         else max(1, int(cfg0.rounds_per_dispatch)))
+        graphed = dev.type == "cuda" and self.kernel_route
+        self.stats = PipelineStats(rounds_per_dispatch=self.k_rounds,
+                                   graphed=graphed)
+        # the buffers the graphs read, and the graphs (None: eager rounds)
+        self._ws = self._workspace(cfg0) if graphed else None
+        self.graphs = self._ws
         self.done = [False] * s
         self._pending_free = []   # freed slots quarantined for one round
 
+    def _workspace(self, cfg0) -> RoundGraphs:
+        """The graphed route's static buffers and graphs: an idle
+        ``RoundGraphs`` of this pipeline's static structure, refilled with
+        this run's params, optimizer state, scalars and data, or a new one;
+        the pipeline then reads and writes its buffers."""
+        static = {"params": self.params, "scal": self._scal,
+                  "x": self.data.x_train, "y": self.data.y_train,
+                  **(self.opt_state or {})}
+        key = (str(self.device), self.s, self.d, self.d_pad, self.yogi,
+               cfg0.scaling_rule, self.spec, cfg0.local_lr, cfg0.prox_mu,
+               cfg0.local_steps, cfg0.local_batch, model_key(cfg0)) + tuple(
+            (k, tuple(t.shape), t.dtype) for k, t in static.items())
+        ws = acquire(key)
+        if ws is None:     # its own copies: the data may be a substrate's
+            ws = RoundGraphs(self.device, key,
+                             {k: t.clone() for k, t in static.items()})
+        else:
+            for k, t in static.items():
+                ws.buffers[k].copy_(t)
+        b = ws.buffers
+        self.params, self._scal = b["params"], b["scal"]
+        self.data.x_train, self.data.y_train = b["x"], b["y"]
+        if self.yogi:
+            self.opt_state = {k: b[k] for k in ("m", "v", "t")}
+        self.cache.rows = ws.cache_rows(self.cache.rows)
+        return ws
+
     def run(self):
-        """Drive every round, then finalize; returns the cells'
-        Accountings, in batch order."""
+        """Drive every round in chunks of up to K, broken at evaluation
+        rounds, then finalize; returns the cells' Accountings, in batch
+        order."""
         for sim in self.sims:
             sim._t_now = 0.0
-        for r in range(self.sims[0].cfg.rounds):
-            if all(self.done):
-                break
-            self.step(r)
+        r, rounds = 0, self.sims[0].cfg.rounds
+        while r < rounds and not all(self.done):
+            chunk = []
+            while len(chunk) < self.k_rounds:
+                chunk.append(r)
+                if self.sims[0].eval_due(r):
+                    break
+                r += 1
+            r = chunk[-1] + 1
+            self._run_chunk(chunk)
         return self.finalize()
 
     def step(self, r: int) -> list:
-        """One round of every live cell: the host state machines, the
-        device round, the evaluation when due, the early stops.  Returns
-        each cell's RoundRecord (None for a cell that skipped the round or
-        had stopped)."""
+        """Round ``r`` alone, as a one-round chunk: the host state
+        machines, the device round, the evaluation when due, the early
+        stops.  Returns each cell's RoundRecord (None for a cell that
+        skipped the round or had stopped)."""
+        works = self._run_chunk([r])
+        recs = works[0].recs if works else {}
+        return [recs.get(i) for i in range(self.s)]
+
+    def _run_chunk(self, rounds) -> list:
+        """Schedule the chunk's rounds, upload their blocks in one copy,
+        run their device rounds, then evaluate if the chunk ends on an
+        evaluation round.  Returns the scheduled rounds' RoundWork."""
         with record_function("round.schedule"):
-            work = self._schedule(r)
-        if work is None:
-            return [None] * len(self.sims)
-        with record_function("round.device"):
-            l2 = self._device_round(r, work)
-        if self.fetch_l2s:
-            with record_function("round.feedback"):
-                self._fetch_feedback(work, l2)
-        if self.sims[work.order[0]].eval_due(r):
+            works = [w for w in map(self._schedule, rounds) if w is not None]
+        if not works:
+            return works
+        with record_function("round.pack"):
+            blocks = [self._pack(w) for w in works]
+            chunk = upload(np.concatenate(blocks), self.device)
+            off = 0
+            for w, b in zip(works, blocks):
+                w.block = chunk[off:off + b.size]
+                off += b.size
+        self.stats.h2d_bytes += chunk.numel() * chunk.element_size()
+        self.stats.dispatches["round"] += 1
+        self.stats.rounds += len(works)
+        for w in works:
+            with record_function("round.device"):
+                l2 = self._device_round(w.r, w)
+            if self.fetch_l2s:
+                with record_function("round.feedback"):
+                    self._fetch_feedback(w, l2)
+        last = works[-1]
+        if self.sims[last.order[0]].eval_due(last.r):
             with record_function("round.eval"):
-                self._eval(work)
-        return [work.recs.get(i) for i in range(len(self.sims))]
+                self._eval(last)
+        return works
 
     def _schedule(self, r: int):
         """The host half of round ``r`` for every live cell: plans,
@@ -212,9 +340,14 @@ class RoundPipeline:
         if self._pending_free:
             self.cache.free(self._pending_free)
         self._pending_free = _quarantine_frees(order, scheds)
+        capacity = self.cache.capacity
         for i in order:
             if scheds[i].new_stale:
                 scheds[i].slots = self.cache.alloc(len(scheds[i].new_stale))
+        if self.cache.capacity != capacity:
+            self.stats.dispatches["cache_grow"] += 1
+            if self._ws is not None:
+                self.cache.rows = self._ws.cache_rows(self.cache.rows)
         if not self.fetch_l2s:
             for i in order:
                 self._feedback(sims[i], r, scheds[i], None)
@@ -236,6 +369,7 @@ class RoundPipeline:
     def _fetch_feedback(self, work, l2) -> None:
         """The round's one device-to-host copy of the l2 stats, then each
         cell's feedback in batch order."""
+        self.stats.feedback_fetches += 1
         l2_host = None if l2 is None else l2.cpu().numpy()
         for i in work.order:
             sim, plan = self.sims[i], work.plans[i]
@@ -248,7 +382,9 @@ class RoundPipeline:
     def _eval(self, work) -> None:
         """The batched evaluation of the round's cells, their records'
         fill, and the accuracy-target early stops."""
-        acc, loss = self.data.evaluate(self.sims, self.params, work.order)
+        self.stats.dispatches["eval"] += 1
+        acc, loss = self.data.evaluate(self.sims, self.params[:self.s],
+                                       work.order)
         for k, i in enumerate(work.order):
             sim = self.sims[i]
             sim._fill_round_eval(work.recs[i], acc[k], loss[k],
@@ -257,102 +393,180 @@ class RoundPipeline:
                 sim.acct.stopped_early = True
                 self.done[i] = True
 
-    def _device_round(self, r: int, work: RoundWork):
-        """The round's training and server step on the device; returns the
-        survivors' l2 stats (device, packed in batch order; None when no
-        learner survived)."""
-        sims, order = self.sims, work.order
-        cfg0 = sims[0].cfg
-        deltas, l2, work.first = train_packed(sims, self.data, self.params,
-                                              work.plans, order)
-        # the stragglers into their cache slots, then the operand's rows
-        groups = [i for i in order if work.scheds[i].fresh_rows
+    # ------------------------------------------------------------------
+    # A round's index block and its device work
+    # ------------------------------------------------------------------
+
+    def _layout(self, b: Bucket) -> dict:
+        """Segment -> (start, stop) of a block of bucket ``b``: sample
+        indices, row cells, scatter slots, fresh and stale gather rows,
+        the (fresh, valid, tau) masks, the groups' params rows, and the
+        attacker flags of an attacked batch."""
+        cfg = self.sims[0].cfg
+        gn = b.groups * b.n
+        sizes = (("bidx", b.rows * cfg.local_steps * cfg.local_batch),
+                 ("cell", b.rows), ("scat", b.rows), ("fidx", gn),
+                 ("sidx", gn), ("meta", 3 * gn), ("agg", b.groups),
+                 ("att", gn if self.attack is not None else 0))
+        out, off = {}, 0
+        for name, size in sizes:
+            out[name] = (off, off + size)
+            off += size
+        return out
+
+    def _pack(self, work) -> np.ndarray:
+        """Round ``work``'s int64 index block (``_layout``), on the final
+        cache capacity of its chunk; sets its bucket, packed-row offsets,
+        groups and their sizes."""
+        sims = self.sims
+        bidx, cells, work.first, work.n_rows = pack_rows(
+            sims, self.data, work.plans, work.order)
+        groups = [i for i in work.order if work.scheds[i].fresh_rows
                   or work.scheds[i].landing]
-        pos = {i: sims[i].survivors(work.plans[i])[1] for i in order}
-        stale_src, slots = [], []
-        for i in order:
-            sc = work.scheds[i]
-            stale_src += [work.first[i] + pos[i][row]
-                          for row, _l, _a, _d in sc.new_stale]
-            slots += sc.slots
         sizes = [len(work.scheds[i].fresh_rows) + len(work.scheds[i].landing)
                  for i in groups]
-        g, n = len(groups), max(sizes + [1])
-        fdst, fsrc, sdst, ssrc = [], [], [], []
-        meta = np.zeros((3, g, n), np.int64)     # fresh, valid, tau
-        att = None if self.attack is None else np.zeros((g, n), np.int64)
+        g, n = len(groups), max(sizes, default=0)
+        if self.kernel_route and g:
+            g, n = bucket_block(g, G_BLOCK), bucket_block(n, N_BLOCK)
+        b = Bucket(0 if cells is None else len(cells), g, n,
+                   self.cache.capacity)
+        work.groups, work.sizes, work.bucket = groups, sizes, b
+        lay = self._layout(b)
+        block = np.zeros(lay["att"][1], np.int64)
+
+        def seg(name):
+            lo, hi = lay[name]
+            return block[lo:hi]
+        trash, scratch = self.cache.trash_slot, self.s
+        if b.rows:
+            seg("bidx")[:] = bidx.ravel()
+            seg("cell")[:] = cells
+            scat = seg("scat")
+            scat[:] = trash
+            for i in work.order:
+                sc = work.scheds[i]
+                pos = sims[i].survivors(work.plans[i])[1]
+                for (row, _l, _a, _d), slot in zip(sc.new_stale, sc.slots):
+                    scat[work.first[i] + pos[row]] = slot
+        if not g:
+            return block
+        fidx = seg("fidx").reshape(g, n)
+        sidx = seg("sidx").reshape(g, n)
+        sidx[:] = trash
+        meta = seg("meta").reshape(3, g, n)      # fresh, valid, tau
+        agg = seg("agg")
+        agg[:] = scratch
+        att = seg("att").reshape(g, n) if self.attack is not None else None
         for k, i in enumerate(groups):
             sc, plan = work.scheds[i], work.plans[i]
-            nf = len(sc.fresh_rows)
-            fdst += range(k * n, k * n + nf)
-            fsrc += [work.first[i] + pos[i][row] for row in sc.fresh_rows]
-            sdst += range(k * n + nf, k * n + sizes[k])
-            ssrc += [f.delta for f in sc.landing]
+            nf, size = len(sc.fresh_rows), sizes[k]
+            pos = sims[i].survivors(plan)[1]
+            fidx[k, :nf] = [work.first[i] + pos[row] for row in sc.fresh_rows]
+            sidx[k, nf:size] = [f.delta for f in sc.landing]
             meta[0, k, :nf] = 1
-            meta[1, k, :sizes[k]] = 1
-            meta[2, k, nf:sizes[k]] = sc.landing_taus
+            meta[1, k, :size] = 1
+            meta[2, k, nf:size] = sc.landing_taus
+            agg[k] = i
             if att is not None:
-                att[k, :sizes[k]] = sims[i].attack_flags(r, agg_lids(plan, sc))
-        # one host->device copy: every index the server step needs
-        parts = [stale_src, slots, fdst, fsrc, sdst, ssrc, groups,
-                 meta.ravel(), [] if att is None else att.ravel()]
-        lens = [len(p) for p in parts]
-        ints = torch.as_tensor(np.concatenate(parts).astype(np.int64),
-                               device=self.device)
-        (stale_src, slots, fdst, fsrc, sdst, ssrc, cells_t, meta_t,
-         att_t) = torch.split(ints, lens)
-        if lens[0]:
-            self.cache.rows[slots] = deltas[stale_src]
-        if not groups:
+                att[k, :size] = sims[i].attack_flags(work.r,
+                                                     agg_lids(plan, sc))
+        return block
+
+    def _views(self, b: Bucket, block) -> dict:
+        """Block ``block`` of bucket ``b`` cut into its segments."""
+        cfg = self.sims[0].cfg
+        v = {name: block[lo:hi] for name, (lo, hi) in self._layout(b).items()}
+        v["bidx"] = v["bidx"].view(b.rows, cfg.local_steps * cfg.local_batch)
+        return v
+
+    def _redirect(self, b: Bucket, block):
+        """A copy of ``block`` whose every write goes to the trash slot and
+        the scratch row: the warm-up round of a new graph."""
+        lay, out = self._layout(b), block.clone()
+        out[slice(*lay["scat"])] = self.cache.trash_slot
+        out[slice(*lay["agg"])] = self.s
+        return out
+
+    def _device_round(self, r: int, work: RoundWork):
+        """The round's training and server step on the device, replayed
+        from its bucket's graph on the card's kernel route, else run
+        eagerly; returns the survivors' l2 stats (device, packed in batch
+        order; None when no learner survived)."""
+        b = work.bucket
+        if self.graphs is not None:
+            l2 = self.graphs.run(b, work.block, self._round(b),
+                                 lambda: self._redirect(b, work.block),
+                                 self.stats)
+        else:
+            l2 = self._round(b, work)(work.block)
+        return None if l2 is None else l2[:work.n_rows]
+
+    def _round(self, b: Bucket, work: RoundWork = None):
+        """The device round of bucket ``b`` as a function of its index
+        block; the kernel route reads nothing else of the round, the eager
+        routes read ``work``'s groups, sizes and landings."""
+        def fn(block):
+            v = self._views(b, block)
+            deltas = l2 = None
+            if b.rows:
+                deltas, l2 = train_rows(self.sims, self.data, self.params,
+                                        v["bidx"], v["cell"])
+                # the stragglers into their slots (the rest into the trash
+                # slot) before the operand gathers this round's landings
+                self.cache.rows[v["scat"]] = deltas
+            if b.groups:
+                self._server_step(b, v, deltas, work)
             return l2
-        u = self.params.new_zeros((g * n, self.d_pad))
-        if lens[2]:
-            u[fdst] = deltas[fsrc]
-        if lens[4]:
-            u[sdst] = self.cache.rows[ssrc]
-        u = u.view(g, n, self.d_pad)
-        meta_t = meta_t.view(3, g, n)
-        fresh, valid = meta_t[0].bool(), meta_t[1].bool()
-        tau = meta_t[2].to(torch.int32)
-        # the groups' rows of the (S, ...) state: a slice (no copy) when
-        # they are every cell in order
-        idx = slice(None) if groups == list(range(len(sims))) else cells_t
-        rule = cfg0.scaling_rule
-        if self.attack is not None or self.robust is not None:
+        return fn
+
+    def _server_step(self, b: Bucket, v, deltas, work) -> None:
+        """The round's (G, n, D) operand and its server step, in place on
+        the groups' params rows (and YoGi state, robust counters)."""
+        cfg0 = self.sims[0].cfg
+        meta = v["meta"].view(3, b.groups, b.n)
+        fresh, valid = meta[0].bool(), meta[1].bool()
+        tau = meta[2].to(torch.int32)
+        u = self.cache.rows[v["sidx"]]
+        if deltas is not None:
+            u = torch.where(fresh.view(-1, 1), deltas[v["fidx"]], u)
+        u = torch.where(valid.view(-1, 1), u, 0.0).view(b.groups, b.n,
+                                                        self.d_pad)
+        cells, rule = v["agg"], cfg0.scaling_rule
+        if self.kernel_route and not self.yogi:
+            rows = self.params[cells]
+            saa_ops.sweep_fused_staleness_apply(
+                rows, u, fresh, tau, valid, self._scal[cells], rule=rule)
+            self.params[cells] = rows
+            return
+        if self.kernel_route:
+            agg, _ = saa_ops.sweep_fused_staleness_aggregate(
+                u, fresh, tau, self._scal[cells, 0].contiguous(), valid,
+                rule=rule)
+        elif self.attack is not None or self.robust is not None:
+            sims, groups = self.sims, work.groups
             agg, counts = robust_sweep(
                 u, fresh, tau, valid,
-                None if att is None else att_t.view(g, n).bool(), sizes,
+                None if self.attack is None
+                else v["att"].view(b.groups, b.n).bool(), work.sizes,
                 attack=self.attack, robust=self.robust,
                 betas=[sims[i].cfg.beta for i in groups],
                 rule_ids=[RULE_ID[sims[i].cfg.scaling_rule] for i in groups],
                 use_kernel=cfg0.use_agg_kernel,
                 no_stale=[not work.scheds[i].landing for i in groups])
-            self.robust_counts[idx] += counts
-        elif cfg0.use_agg_kernel and not self.yogi:
-            rows = self.params if isinstance(idx, slice) else self.params[idx]
-            saa_ops.sweep_fused_staleness_apply(
-                rows, u, fresh, tau, valid, self._scal[idx], rule=rule)
-            if not isinstance(idx, slice):
-                self.params[idx] = rows
-            return l2
-        elif cfg0.use_agg_kernel:
-            agg, _ = saa_ops.sweep_fused_staleness_aggregate(
-                u, fresh, tau, self._scal[idx, 0].contiguous(), valid,
-                rule=rule)
+            self.robust_counts[cells] += counts
         else:
             agg = torch.stack([self._plain_aggregate(
-                sims[i].cfg, u[k, :sizes[k]], fresh[k, :sizes[k]],
-                tau[k, :sizes[k]], valid[k, :sizes[k]],
-                not work.scheds[i].landing) for k, i in enumerate(groups)])
+                self.sims[i].cfg, u[k, :m], fresh[k, :m], tau[k, :m],
+                valid[k, :m], not work.scheds[i].landing)
+                for k, (i, m) in enumerate(zip(work.groups, work.sizes))])
         if self.yogi:
-            st = {key: v[idx] for key, v in self.opt_state.items()}
-            new, st = yogi_apply_flat(self.params[idx], agg, st)
-            self.params[idx] = new
-            for key, v in st.items():
-                self.opt_state[key][idx] = v
+            st = {key: s[cells] for key, s in self.opt_state.items()}
+            new, st = yogi_apply_flat(self.params[cells], agg, st)
+            self.params[cells] = new
+            for key, s in st.items():
+                self.opt_state[key][cells] = s
         else:
-            self.params[idx] += self._scal[idx, 1:2] * agg
-        return l2
+            self.params[cells] += self._scal[cells, 1:2] * agg
 
     @staticmethod
     def _plain_aggregate(cfg, u, fresh, tau, valid, no_stale: bool):
@@ -366,7 +580,9 @@ class RoundPipeline:
 
     def finalize(self) -> list:
         """Write each cell's device model (and YoGi state, robust counters)
-        back to its Simulator and finalize it; returns the Accountings."""
+        back to its Simulator and finalize it, and hand the graphs back
+        for the next pipeline of this structure; returns the
+        Accountings."""
         accts = []
         for i, sim in enumerate(self.sims):
             sim.flat_params = self.params[i, :self.d].clone()
@@ -377,4 +593,7 @@ class RoundPipeline:
                     "t": self.opt_state["t"][i].clone()}
             sim.robust_counts = self.robust_counts[i].clone()
             accts.append(sim._finalize())
+        if self._ws is not None:
+            release(self._ws)
+            self._ws = self.graphs = None
         return accts

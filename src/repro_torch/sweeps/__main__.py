@@ -4,18 +4,21 @@
   PYTHONPATH=src python -m repro_torch.sweeps                  # GPU demo grid
   PYTHONPATH=src python -m repro_torch.sweeps --list-selectors
   PYTHONPATH=src python -m repro_torch.sweeps --selector random,oort,safa
+  PYTHONPATH=src python -m repro_torch.sweeps --rounds-per-dispatch 4
 
 Expands a policy x SAA x hardware grid (or, with ``--selector``, a
 selector race under matched seeds), runs it batched, re-runs every cell
 serially to assert equal metrics, and prints the paper-style
 resource-to-accuracy table with the batched and serial wall times.
-Unlike the reference it writes a JSON payload only when ``--out`` names a
-path.  The reference's sharding, chunking, checkpoint and telemetry flags
-raise, naming the ROADMAP.md item that ports them.
+``--rounds-per-dispatch K`` runs the batches in K-round chunks, against
+serial runs at K = 1.  Unlike the reference it writes a JSON payload only
+when ``--out`` names a path.  The reference's sharding, checkpoint and
+telemetry flags raise, naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 
@@ -29,7 +32,6 @@ from repro_torch.sweeps.runner import exact_parity, unported
 UNPORTED_FLAGS = {
     "sharded": ("sweep-axis sharding", 14),
     "participant_shards": ("participant sharding", 14),
-    "rounds_per_dispatch": ("K-round chunks (rounds_per_dispatch > 1)", 8),
     "checkpoint": ("sweep checkpoints", 10),
     "resume": ("sweep resume (checkpoints)", 10),
     "crash_after": ("crash injection", 10),
@@ -78,7 +80,8 @@ def main(argv=None) -> None:
     ap.add_argument("--participant-shards", type=int, default=0,
                     help=argparse.SUPPRESS)
     ap.add_argument("--rounds-per-dispatch", type=int, default=1,
-                    help=argparse.SUPPRESS)
+                    metavar="K", help="rounds a chunk of the batched run "
+                    "(the serial runs stay at 1)")
     ap.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--resume", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--crash-after", type=int, default=None,
@@ -88,8 +91,7 @@ def main(argv=None) -> None:
 
     for flag, (what, item) in UNPORTED_FLAGS.items():
         value = getattr(args, flag)
-        if value not in (None, False, 0) and not (
-                flag == "rounds_per_dispatch" and value == 1):
+        if value not in (None, False, 0):
             raise unported(what, item)
     if args.list_selectors or args.list_aggregators:
         if args.list_selectors:
@@ -114,11 +116,19 @@ def main(argv=None) -> None:
         spec.axes = dict(spec.axes, attack=args.attack.split(","))
         spec.base = dict(spec.base, attack_frac=args.attack_frac)
     cells = spec.expand()
+    if args.rounds_per_dispatch != 1:
+        cells = [dataclasses.replace(c, config=dataclasses.replace(
+            c.config, rounds_per_dispatch=args.rounds_per_dispatch))
+            for c in cells]
     print(f"# sweep: {len(cells)} cells "
           f"({' x '.join(f'{a}[{len(v)}]' for a, v in spec.axes.items())}"
           f" x seeds[{len(spec.seeds)}])")
     results, batched_wall = run_batched(cells, device=args.device)
-    serial, serial_wall = run_serial(cells, device=args.device)
+    # the serial runs stay at K = 1: an independent ground truth
+    serial, serial_wall = run_serial(
+        [dataclasses.replace(c, config=dataclasses.replace(
+            c.config, rounds_per_dispatch=1)) for c in cells],
+        device=args.device)
     exact = exact_parity(resolve_device(args.device))
     assert_parity(results, serial, exact=exact)
     speedup = serial_wall / max(batched_wall, 1e-9)
@@ -133,6 +143,7 @@ def main(argv=None) -> None:
     if args.out:
         payload = {"bench": "sweeps", "mode": "smoke" if args.smoke else "demo",
                    "device": args.device or "cuda",
+                   "rounds_per_dispatch": args.rounds_per_dispatch,
                    "cells": len(cells), "batched_wall_s": batched_wall,
                    "serial_wall_s": serial_wall, "speedup": speedup,
                    "parity": True, "results": results.to_json_dict()}

@@ -1,5 +1,6 @@
 """Batched multi-simulation executor (port of ``repro.sweeps.runner``,
-unsharded, one round a dispatch).
+unsharded; a fused batch runs in ``SimConfig.rounds_per_dispatch``-round
+chunks).
 
 ``SweepRunner`` drives compatible cells (``compat_key``) in lockstep.
 Each round every cell's host state machine runs per cell (the Simulator's
@@ -76,7 +77,8 @@ class SweepRunner:
     prebuilt ``Substrate`` (the tests inject the reference's initial
     weights this way); ``fault_plan`` (attacker sets only) applies to
     every cell.  After ``run()``, ``sims[i]`` holds cell i's finished
-    Simulator (its final ``flat_params``)."""
+    Simulator (its final ``flat_params``) and ``batch_stats`` each fused
+    batch's ``PipelineStats.as_dict()``, in batch order."""
     cells: Sequence[Cell]
     device: Optional[object] = None
     substrate_cache: Optional[dict] = None
@@ -99,6 +101,7 @@ class SweepRunner:
         if self.substrate_cache is None:
             self.substrate_cache = {}
         self.sims = [None] * len(self.cells)
+        self.batch_stats = []
 
     def substrate(self, cfg) -> Substrate:
         key = substrate_key(cfg)
@@ -120,9 +123,12 @@ class SweepRunner:
                               substrate=self.substrate(self.cells[i].config),
                               device=self.device, fault_plan=self.fault_plan)
                     for i in idxs]
-            accts = (RoundPipeline(sims, progress=self.progress).run()
-                     if sims[0].cfg.fused_rounds
-                     else self._run_batch_stages(sims))
+            if sims[0].cfg.fused_rounds:
+                pipe = RoundPipeline(sims, progress=self.progress)
+                accts = pipe.run()
+                self.batch_stats.append(pipe.stats.as_dict())
+            else:
+                accts = self._run_batch_stages(sims)
             for i, sim, acct in zip(idxs, sims, accts):
                 self.sims[i] = sim
                 results[i] = CellResult(cell=self.cells[i],

@@ -73,7 +73,6 @@ def test_simulator_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
     (dict(fast_path=False), 15),
     (dict(guard=True), 10),
     (dict(telemetry=2), 12),
-    (dict(rounds_per_dispatch=4), 8),
     (dict(shard_participants=2), 14),
     (dict(benchmark="tokens", model="transformer"), 2),
     (dict(model="transformer"), 13),
