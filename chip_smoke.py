@@ -8,8 +8,10 @@ From the repository root, with nothing built beforehand.  It
   2. builds every CUDA kernel from the sources in ``src/repro_torch``;
   3. holds each kernel of the SAA family against its plain PyTorch version
      on the card (the round pipeline's shapes, a large shape, every scaling
-     rule, padding, no-stale, no-fresh and all-invalid cells; the params
-     update in place), and holds the apply kernels bit for bit to the
+     rule, padding, no-stale, no-fresh and all-invalid cells, and
+     ``screened`` cells: the guard's survivor mask, holes among fresh and
+     stale rows with the rejected rows zeroed; the params update in place),
+     and holds the apply kernels bit for bit to the
      aggregate kernels followed by torch's ``params + lr * agg``, and the
      one-launch cluster kernel of kernels 1-4 bit for bit to their
      three-launch chain (U in shared memory, U read from L2, one to three
@@ -63,7 +65,19 @@ From the repository root, with nothing built beforehand.  It
      then the model zoo's serve path in bf16: internlm2-1.8b+swa
      prefill and logits (``swa_attention_bhsd``, every launch on its
      tensor-core kernel), rwkv6-1.6b prefill
-     (``wkv6_bhsn``) and greedy requests of each;
+     (``wkv6_bhsn``) and greedy requests of each; and the chaos harness
+     (``chaos_paths``): ``examples/chaos_round.py``'s four guard modes at
+     full size under its fault plan, fused and graphed with the guard's
+     screen and quorum gate inside the round graph, guard=clip+reject's
+     flat twin, a guarded RELAY+YoGi run, guard=reject at K = 4 and eager,
+     guard + coord_median under attack (kernels 1, 2, 3 and 7; a round
+     whose quorum fails still launches its kernel, so each kernel launches
+     once per round with a group, the flat twin's kernel 3 too, with the
+     survivor mask), then each kernel against its plain version at the n
+     those runs gave it (the screened case included), a soft crash after
+     round 15 resumed from its
+     snapshot at K = 1 and 4, and the sweep CLI's hard crash (SIGKILL) and
+     ``--resume`` in subprocesses;
   5. checks the result: finite parameters of the model's width; each flat
      campaign equal to its fused twin bit for bit (records, params and
      robust counters), each eager run to its graphed one; kernels 1 and 2
@@ -77,6 +91,15 @@ From the repository root, with nothing built beforehand.  It
      close to a run of the plain versions (bf16: no further from the fp32
      model than the plain versions' bf16 run), prefill equal to decode after
      a short prompt, and the reduced configs on the GPU equal to the CPU;
+     the guard without faults equal to no guard bit for bit, the guarded
+     runs finite and rejecting rows, ``repro_torch.chaos_round --smoke``
+     passing the example's own gates on the card (within 0.15 of clean;
+     at full size the guarded runs miss it, an open fault whose final
+     accuracies are printed beside the CPU runs'), K = 4 and eager
+     guarded rounds equal to K = 1 graphed ones bit for bit, host records
+     and guard counters equal to CPU runs, each resumed run equal to its
+     uninterrupted one bit for bit with no graph captured on resume, and
+     the CLI's resumed sweep equal to an uninterrupted one;
   6. times each kernel, its plain version and (where one exists) the one
      PyTorch call that computes the same function, and prints their bounds
      (and, for the LM kernels, the achieved TFLOP/s and share of the bound);
@@ -297,6 +320,10 @@ TRIM_TIME_S = (1, 8)
 # at K = CHUNK_K, held bit for bit to K = 1
 QUICK_FUSED = ("Random", "RELAY", "RELAY+YoGi")
 CHUNK_K = 4
+# the chaos phase: examples/chaos_round.py's accuracy gate, and its soft
+# crash (after this round, a snapshot every that many rounds)
+CHAOS_TOLERANCE = 0.15
+CHAOS_CRASH = (15, 5)
 # the most graphs a serial campaign and a sweep batch may capture (one a
 # bucket: training rows x groups x operand rows x cache capacity)
 CAPTURE_MAX, SWEEP_CAPTURE_MAX = 24, 48
@@ -350,7 +377,7 @@ def saa_inputs(torch, s, n, d, case, gen):
     fresh = torch.zeros((s, n), dtype=torch.bool, device=dev)
     valid = torch.ones((s, n), dtype=torch.bool, device=dev)
     nf = max(1, n // 2)
-    if case in ("mixed", "padding", "all_invalid"):
+    if case in ("mixed", "padding", "all_invalid", "screened"):
         fresh[:, :nf] = True
     elif case == "no_stale":
         fresh[:] = True
@@ -359,6 +386,11 @@ def saa_inputs(torch, s, n, d, case, gen):
         u[~valid] = 0.0          # the pipeline's padding rows are exact zeros
     if case == "all_invalid":
         valid[-1] = False
+    if case == "screened":
+        # the guard's survivor mask: holes among fresh and stale rows, the
+        # rejected rows zeroed, ``fresh`` left as it was
+        valid &= torch.rand((s, n), generator=gen, device=dev) >= 0.3
+        u[~valid] = 0.0
     tau = torch.randint(1, 6, (s, n), generator=gen, device=dev,
                         dtype=torch.int32)
     tau[fresh] = 0
@@ -378,6 +410,7 @@ class Checks:
         self.err = Counter()
         self.rel = Counter()
         self.same = Counter()     # cluster == chain checks, by default variant
+        self.cases = Counter()    # SAA checks by case (mixed, screened, ...)
         self.bits = Counter()     # bitwise checks: kernel 6 == the server
         #                           step's aggregate; trimmed mean by variant
 
@@ -487,6 +520,7 @@ def check_family(torch, ops, ref, checks, s, n, d, rule, case, gen,
     if not (torch.equal(w4, w3) and torch.equal(p4, params[c] + l * a3)):
         fail(f"one-cell apply != params + lr * aggregate, bitwise, at {what}")
     checks.count(APPLY, AGG, CELL_AGG, CELL_APPLY)
+    checks.cases[case] += 1
     # the cluster kernel == the three-launch chain, bitwise
     if d // ops.D_BLK <= CLUSTER_CHECK_CHUNKS:
         by = {v: variant_outputs(ops, params, u, fresh, tau, valid, scal, rule, v)
@@ -1535,6 +1569,11 @@ def robust_counts(acct):
     return s["robust_rejected"], s["robust_trimmed"]
 
 
+def guard_counts(acct):
+    s = acct.summary()
+    return s["rejected_nonfinite"], s["rejected_norm"], s["quorum_skips"]
+
+
 def attacker_sets(sim):
     """Every round's attacker ids of a Simulator's plan (empty unattacked)."""
     plan = sim.fault_plan
@@ -2025,6 +2064,281 @@ def sweep_paths(torch, gen, checks, launches) -> dict:
     return out, profile_paths
 
 
+# --- the chaos harness -----------------------------------------------------
+
+
+def chaos_paths(torch, launches) -> dict:
+    """``examples/chaos_round.py`` at full size on the card (100 learners,
+    40 rounds, eval every 10, n_target 10, priority + SAA relay,
+    label_uniform, seed 0; kernels on), through ``repro_torch.chaos_round``:
+    the four guard modes fused and graphed under its fault plan (nan 0.08,
+    inf 0.04, scale 0.08 x1e4, post_drop 0.05, replay 0.10, seed 42), the
+    guard on without faults, guard=clip+reject's flat twin, a guarded
+    RELAY+YoGi run (kernel 2), guard=reject at K = 4 and with its rounds
+    dispatched eagerly, and guard + coord_median under the race's
+    collude_signflip (kernel 7).  A round whose quorum fails still runs its
+    server step (the reference computes it, then keeps the old rows), so
+    each kernel must launch once per round with a group, counted per
+    replay; on the flat twin too, where kernel 3 takes the survivor mask
+    as ``valid``.  Then the crash:
+    the guard=reject run crashed (soft) after round 15 with a snapshot
+    every 5 and resumed, at K = 1 and 4, against the uninterrupted run;
+    and the sweep CLI's hard crash (SIGKILL) and its resume in
+    subprocesses.  Returns the report's "chaos" entry and, for each kernel,
+    the rows a round it ran at (``main`` holds it against its plain
+    version at those n)."""
+    import os
+    import tempfile
+    from repro_torch import chaos_round
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.staleness_agg import ops as saa_ops
+    from repro_torch.kernels.trimmed_agg import ops as trim_ops
+    from repro_torch.sim import SimConfig, Simulator
+    from repro_torch.sweeps import run_batched
+    from repro_torch.sweeps.__main__ import demo_spec
+    common, plan = chaos_round.build(False)
+    common = dict(common, use_agg_kernel=True)
+    modes = {label: extra for label, extra, _ in chaos_round.GUARD_MODES}
+    reject, clip = modes["guard=reject"], modes["guard=clip+reject"]
+    runs = {              # name -> (config, faulted, the kernel it runs)
+        "clean": (common, False, APPLY),
+        "guard, no faults": (dict(common, guard=True, quorum=1), False, APPLY),
+        "guard=off": (common, True, APPLY),
+        "guard=reject": (dict(common, **reject), True, APPLY),
+        "guard=clip+reject": (dict(common, **clip), True, APPLY),
+        "guard=clip+reject flat": (dict(common, **clip, fused_rounds=False),
+                                   True, CELL_AGG),
+        "RELAY+YoGi guard=reject": (dict(common, **reject, server_opt="yogi"),
+                                    True, AGG),
+        f"guard=reject K={CHUNK_K}": (dict(common, **reject,
+                                           rounds_per_dispatch=CHUNK_K),
+                                      True, APPLY),
+        "coord_median guard": (dict(chaos_round.attack_config(False),
+                                    use_agg_kernel=True,
+                                    aggregator="coord_median", **reject),
+                               True, TRIM),
+        # kernels off: each group screened and weighed on its own rows
+        "guard=clip+reject, kernels off": (dict(common, **clip,
+                                                use_agg_kernel=False),
+                                           True, None),
+        "guard=clip+reject, kernels off flat": (
+            dict(common, **clip, use_agg_kernel=False, fused_rounds=False),
+            True, None),
+    }
+    guarded = [n for n, (kw, _, _) in runs.items() if kw.get("guard")
+               and n != "guard, no faults"]
+    gpu, sims, rep, ns = {}, {}, {"paths": {}}, {}
+    for name, (kw, faulted, kernel) in runs.items():
+        sims[name] = sim = Simulator(SimConfig(**kw), device="cuda",
+                                     fault_plan=plan if faulted else None)
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu[name], stats = drive(sim)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, n_grp = dict(LAUNCHES), aggregated(gpu[name])
+        want = {} if kernel is None else {kernel: n_grp}
+        if kernel in FUSED:
+            want[saa_ops.launch_key(kernel, "cluster")] = n_grp
+        if kernel == TRIM:
+            want.update(Counter(
+                saa_ops.launch_key(TRIM, trim_ops.variant(r.n_fresh + r.n_stale))
+                for r in gpu[name].records if r.n_fresh + r.n_stale > 0))
+        if (kernel is not None and n_grp == 0) or got != want:
+            fail(f"chaos {name}: launches {got}, expected {want} (one per "
+                 "round with a group)")
+        if kernel is not None:
+            ns.setdefault(kernel, Counter()).update(
+                r.n_fresh + r.n_stale for r in gpu[name].records
+                if r.n_fresh + r.n_stale > 0)
+        if stats is not None:
+            graph_gate(f"chaos {name}", stats, kernel, len(gpu[name].records))
+        launches.update(got)
+        s = gpu[name].summary()
+        rep["paths"][name] = {
+            "launches": got, "rounds_with_a_group": n_grp, "first_run_s": wall,
+            **{k: s[k] for k in ("final_accuracy", "rejected_nonfinite",
+                                 "rejected_norm", "quorum_skips",
+                                 "robust_rejected", "robust_trimmed")},
+            "pipeline": stats}
+        print(f"chaos {name}: {got} over {n_grp} rounds with a group; accuracy "
+              f"{s['final_accuracy']:.3f}, rejected non-finite "
+              f"{s['rejected_nonfinite']}, norm {s['rejected_norm']}, quorum "
+              f"skips {s['quorum_skips']}" + ("" if stats is None else (
+                  f"; {stats['graph_replays']} rounds replayed from "
+                  f"{stats['graph_captures']} new graphs" if stats["graphed"]
+                  else "; eager rounds")))
+    # the gates
+    if not same_run(torch, gpu["clean"], sims["clean"], gpu["guard, no faults"],
+                    sims["guard, no faults"]):
+        fail("chaos: the guard without faults differs from no guard, bitwise")
+    clean_acc = gpu["clean"].summary()["final_accuracy"]
+    for name in guarded:
+        s = gpu[name].summary()
+        if not torch.isfinite(sims[name].flat_params).all() or \
+                s["rejected_nonfinite"] + s["rejected_norm"] == 0:
+            fail(f"chaos {name}: non-finite params or nothing rejected ({s})")
+        rep["paths"][name]["gap_to_clean"] = s["final_accuracy"] - clean_acc
+    # the example's accuracy gate at the size its own check runs; at full
+    # size the guarded runs end far below clean, an open fault (ROADMAP
+    # queue 3) whose gaps are printed below, beside the CPU runs'
+    print("chaos: examples/chaos_round.py's own check (--smoke) on the card:")
+    if chaos_round.main(["--smoke", "--device", "cuda",
+                         "--tolerance", str(CHAOS_TOLERANCE)]) != 0:
+        fail("chaos: repro_torch.chaos_round --smoke failed its gates")
+    k4 = f"guard=reject K={CHUNK_K}"
+    if not same_run(torch, gpu["guard=reject"], sims["guard=reject"], gpu[k4],
+                    sims[k4]):
+        fail(f"chaos {k4}: differs from K = 1, bitwise")
+    if rep["paths"][k4]["launches"] != rep["paths"]["guard=reject"]["launches"]:
+        fail(f"chaos {k4}: launches differ from K = 1's")
+    off = "guard=clip+reject, kernels off"
+    if not same_run(torch, gpu[off], sims[off], gpu[f"{off} flat"],
+                    sims[f"{off} flat"]) or \
+            guard_counts(gpu[off]) != guard_counts(gpu[f"{off} flat"]):
+        fail(f"chaos {off}: the flat path differs from the fused one, bitwise")
+    flat, fused = gpu["guard=clip+reject flat"], gpu["guard=clip+reject"]
+    if [host(r) for r in flat.records] != [host(r) for r in fused.records] or \
+            guard_counts(flat) != guard_counts(fused):
+        fail("chaos guard=clip+reject flat: host records or guard counters "
+             "differ from the fused run's")
+    cpu_acc = {}
+    for name, (kw, faulted, _) in runs.items():
+        cpu = Simulator(SimConfig(**kw), device="cpu",
+                        fault_plan=plan if faulted else None).run()
+        if [host(r) for r in gpu[name].records] != [host(r) for r in cpu.records] \
+                or guard_counts(gpu[name]) != guard_counts(cpu) \
+                or robust_counts(gpu[name]) != robust_counts(cpu):
+            fail(f"chaos {name}: host records or guard / robust counters "
+                 "differ from the CPU run's")
+        cpu_acc[name] = cpu.summary()["final_accuracy"]
+        rep["paths"][name]["cpu_final_accuracy"] = cpu_acc[name]
+    print("chaos full size (open fault: the example's 0.15 gate is not met), "
+          "final accuracy on the card / on the CPU (plain versions): "
+          + ", ".join(f"{n} {gpu[n].summary()['final_accuracy']:.4f} / "
+                      f"{cpu_acc[n]:.4f}" for n in
+                      ("clean", "guard=off", "guard=reject",
+                       "guard=clip+reject")))
+    print("chaos gates: guard without faults == no guard bitwise; guarded runs "
+          f"finite and rejecting rows; K = {CHUNK_K} == K = 1 bitwise; kernels "
+          "off, flat == fused bitwise; the flat twin's host records and guard "
+          "counters == fused; host records and guard / robust counters of all "
+          f"{len(runs)} runs == CPU runs")
+    # warm runs: rounds/s, captures; the eager twin bitwise the graphed run
+    rep["timed"] = {}
+    timed = {n: (runs[n][0], False) for n in
+             ("clean", "guard=off", "guard=reject", "guard=clip+reject",
+              "RELAY+YoGi guard=reject", k4)}
+    timed["guard=reject eager"] = (runs["guard=reject"][0], True)
+    for name, (kw, eager) in timed.items():
+        sim = Simulator(SimConfig(**kw), device="cuda",
+                        fault_plan=None if name == "clean" else plan)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acct, stats = drive(sim, eager)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if eager and not same_run(torch, gpu["guard=reject"],
+                                  sims["guard=reject"], acct, sim):
+            fail("chaos guard=reject: the eager rounds differ from the "
+                 "graphed ones, bitwise")
+        rep["timed"][name] = {"rounds": len(acct.records), "seconds": secs,
+                              "rounds_per_s": len(acct.records) / secs,
+                              "graph_captures": stats["graph_captures"],
+                              "graph_capture_s": stats["graph_capture_s"]}
+        print(f"chaos {name}: {len(acct.records)} rounds in {secs:.3f}s = "
+              f"{len(acct.records) / secs:.1f} rounds/s warm, "
+              f"{stats['graph_captures']} captures ({card_line()})")
+    # the screen: host and device ms from a profile of the eager run, and
+    # alone at the path's padded shape
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        n_rec = len(drive(Simulator(SimConfig(**runs["guard=reject"][0]),
+                                    device="cuda", fault_plan=plan), True)[0]
+                    .records)
+        torch.cuda.synchronize()
+    # the host-side span events (their device-side mirrors are ranges,
+    # not work): host time, and the device time of the kernels inside
+    spans = [e for e in prof.events() if e.name == "round.screen"
+             and e.device_type.name == "CPU"]
+    if not spans:
+        fail("chaos: no round.screen span in the eager guard=reject profile")
+    dev_ms = sum(e.device_time_total for e in spans) / 1e3
+    rep["screen_profile"] = {"rounds": n_rec, "calls": len(spans),
+                             "host_ms": sum(e.cpu_time_total for e in spans) / 1e3,
+                             "device_ms": dev_ms or None}
+    from repro_torch.core.aggregation import screen_rows
+    n_pad = 16
+    u = torch.randn((1, n_pad, MAIN_D), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    u[..., 12835:] = 0.0
+    valid = torch.arange(n_pad, device="cuda")[None] < 13
+    screen = lambda: screen_rows(u, valid, clip=None, reject_mult=5.0,
+                                 norm_d=12835)
+    rep["screen_alone"] = {"shape": [1, n_pad, MAIN_D],
+                           "ms": time_ms(torch, screen, 200),
+                           "device_ms": graph_ms(torch, screen)}
+    print(f"chaos screen: profile of the eager guard=reject run, {len(spans)} "
+          f"calls: host {rep['screen_profile']['host_ms']:.2f} ms, device "
+          + ("not measured" if not dev_ms else f"{dev_ms:.3f} ms")
+          + f" ({n_rec} rounds); alone at (1, {n_pad}, {MAIN_D}): "
+          f"{rep['screen_alone']['ms']:.4f} ms events, "
+          f"{rep['screen_alone']['device_ms']:.4f} ms graph replay ({card_line()})")
+    # the crash: soft, after round 15, snapshots every 5, resumed
+    rep["crash_resume"] = {}
+    for k in (1, CHUNK_K):
+        cfg = SimConfig(**runs["guard=reject"][0], rounds_per_dispatch=k)
+        out = chaos_round.crash_resume(cfg, plan, device="cuda",
+                                       crash_after=CHAOS_CRASH[0],
+                                       checkpoint_every=CHAOS_CRASH[1])
+        (ref, ref_sim), (got, sim) = out["ref"], out["resumed"]
+        st = out["pipeline"].stats
+        tail = sum(1 for r in ref.records if r.round_idx >= out["next_round"])
+        if not same_run(torch, ref, ref_sim, got, sim) or \
+                guard_counts(got) != guard_counts(ref):
+            fail(f"chaos crash K={k}: the resumed run differs from the "
+                 "uninterrupted one, bitwise")
+        if st.graph_captures or st.graph_replays != tail:
+            fail(f"chaos crash K={k}: the resume captured {st.graph_captures} "
+                 f"graphs and replayed {st.graph_replays} of {tail} rounds")
+        rep["crash_resume"][f"K={k}"] = {"next_round": out["next_round"],
+                                          "resumed_rounds": tail,
+                                          "captures_on_resume": 0}
+        print(f"chaos crash K={k}: crashed after round {CHAOS_CRASH[0]}, resumed "
+              f"at {out['next_round']}; {tail} rounds replayed from the crashed "
+              "run's graphs, 0 captures; records, params and guard counters "
+              "== the uninterrupted run, bitwise")
+    # the sweep CLI: a hard crash (SIGKILL) after round 3, then --resume
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, out_json = os.path.join(tmp, "sweep.pkl"), os.path.join(tmp, "r.json")
+
+        def cli(*args):
+            return subprocess.run([sys.executable, "-m", "repro_torch.sweeps",
+                                   *args], cwd=ROOT, env=env, text=True,
+                                  capture_output=True, timeout=600)
+        crashed = cli("--smoke", "--checkpoint", ckpt, "--crash-after", "3",
+                      "--crash-hard")
+        if crashed.returncode not in (137, -9):
+            fail(f"sweep CLI --crash-hard exited {crashed.returncode}, not 137: "
+                 f"{crashed.stderr[-2000:]}")
+        resumed = cli("--resume", ckpt, "--out", out_json)
+        if resumed.returncode != 0:
+            fail(f"sweep CLI --resume failed: {resumed.stderr[-2000:]}")
+        got = json.loads(Path(out_json).read_text())["results"]
+    clean, _ = run_batched(demo_spec(True).expand(), device="cuda")
+    if got != json.loads(json.dumps(clean.to_json_dict())):
+        fail("sweep CLI: the resumed sweep's results differ from an "
+             "uninterrupted smoke sweep's")
+    rep["cli_hard_crash"] = {"exit": crashed.returncode,
+                             "resumed_cells": len(got["cells"])}
+    print(f"sweep CLI --crash-after 3 --crash-hard: killed by SIGKILL (exit "
+          f"{crashed.returncode}); --resume: {len(got['cells'])} cells == the "
+          "uninterrupted smoke sweep")
+    return rep, ns
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2073,7 +2387,8 @@ def main():
     # --- 2. each kernel against its plain version -----------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
     rules = ("equal", "dynsgd", "adasgd", "relay")
-    cases = ("mixed", "padding", "no_stale", "no_fresh", "all_invalid")
+    cases = ("mixed", "padding", "no_stale", "no_fresh", "all_invalid",
+             "screened")
     checks = Checks(torch)
 
     def check_grid(shapes):
@@ -2446,6 +2761,27 @@ def main():
           f"(D={p_cpu.numel()})")
 
     lap("FL results against the CPU")
+    # --- the chaos harness: faults, the guard, crash and resume ---------
+    report["chaos"], chaos_ns = chaos_paths(torch, launches)
+    # each kernel against its plain version at the n the chaos runs gave
+    # it, with the screened case's holes among them
+    saa_ns = sorted(set().union(*(chaos_ns.get(k, ()) for k in SAA_REPLACES)))
+    trim_ns = sorted(chaos_ns.get(TRIM, ()))
+    pad_ns = sorted(set(chaos_ns.get(APPLY, ())) | set(chaos_ns.get(AGG, ())))
+    before = sum(checks.n.values())
+    check_grid([(1, n, MAIN_D) for n in saa_ns])
+    check_trim_grid(trim_ns, (TRIM_D[-1],))
+    check_padding(torch, saa_ops, checks, pad_ns, gen)
+    report["chaos"]["kernel_checks"] = {
+        "saa_n": saa_ns, "trimmed_n": trim_ns, "padded_n": pad_ns,
+        "checks": sum(checks.n.values()) - before,
+        "screened": checks.cases["screened"]}
+    print(f"chaos: kernels == plain versions at the chaos runs' n (SAA "
+          f"{saa_ns}, every case with the screened one; trimmed mean "
+          f"{trim_ns} at D={TRIM_D[-1]}; kernels 1-2 n == padded n at "
+          f"{pad_ns}): {sum(checks.n.values()) - before} more checks, "
+          f"{checks.cases['screened']} screened in all")
+    lap("chaos harness")
     # --- the sweep paths: lockstep batches of S cells --------------------
     report["sweeps"], profile_sweeps = sweep_paths(torch, gen, checks, launches)
     lap("sweep paths")
@@ -2558,7 +2894,8 @@ def main():
     lap("sweep profiles")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in report["phase_s"].items()))
     report.update(times=times, launches=dict(launches),
-                  kernel_checks=dict(checks.n), cluster_equals_chain=dict(checks.same),
+                  kernel_checks=dict(checks.n), check_cases=dict(checks.cases),
+                  cluster_equals_chain=dict(checks.same),
                   bitwise_checks=dict(checks.bits),
                   max_abs_err=dict(checks.err),
                   max_rel_err=dict(checks.rel),

@@ -178,7 +178,7 @@ def sweep_bucket_pad(cell_updates, d: int, *, device=None):
 
 
 def sweep_aggregate_flat(stacked, fresh, tau, valid, beta, *, rule="relay",
-                         use_kernel: bool = False):
+                         use_kernel: bool = False, sizes=None):
     """SAA-aggregate S cells' rounds.
 
     stacked: (S, n, D) fp32 with each cell's valid rows first (as
@@ -186,7 +186,9 @@ def sweep_aggregate_flat(stacked, fresh, tau, valid, beta, *, rule="relay",
     ``beta``: the cells' Eq. 2 weights, a sequence of Python floats (or an
     (S,) tensor); ``rule``: one rule name or one a cell.  Returns
     (aggregate (S, D), weights (S, n)); a cell with no valid row gets a
-    zero row and zero weights.
+    zero row and zero weights.  ``sizes`` (each cell's row count) lets
+    ``valid`` hold holes inside a cell's rows, as the guard's survivor
+    mask does; without it a cell's valid rows are its rows.
 
     ``use_kernel`` runs every cell in one launch of
     ``sweep_fused_staleness_aggregate`` (kernel 2), which takes one rule,
@@ -210,7 +212,9 @@ def sweep_aggregate_flat(stacked, fresh, tau, valid, beta, *, rule="relay",
                                                  beta=beta_t)
     agg = stacked.new_zeros((s, stacked.shape[2]))
     w = stacked.new_zeros(stacked.shape[:2])
-    for i, k in enumerate(valid.sum(dim=1).tolist()):
+    if sizes is None:
+        sizes = valid.sum(dim=1).tolist()
+    for i, k in enumerate(sizes):
         if k:
             agg[i], w[i, :k] = weights_and_aggregate_by_id(
                 stacked[i, :k], fresh[i, :k], tau[i, :k], valid[i, :k],
@@ -218,9 +222,10 @@ def sweep_aggregate_flat(stacked, fresh, tau, valid, beta, *, rule="relay",
     return agg, w
 
 
-def screen_rows(u, valid, *, clip=None, reject_mult=None):
+def screen_rows(u, valid, *, clip=None, reject_mult=None, norm_d=None):
     """Screening of an update operand ``u`` (..., n, D); the reference's
-    formula, which ``norm_median_clip`` runs.  Three screens, in order:
+    formula, which the guard and ``norm_median_clip`` run.  Three screens,
+    in order:
 
       1. non-finite reject: any NaN/Inf element invalidates the row;
       2. norm-outlier reject (``reject_mult``): rows whose squared L2 norm
@@ -230,17 +235,24 @@ def screen_rows(u, valid, *, clip=None, reject_mult=None):
          ``clip`` when they exceed it.
 
     Rejected rows are zeroed, not only masked, so no NaN reaches a later
-    weighted sum.  valid: (..., n) bool.  Returns ``(u_screened, valid_out, n_nonfinite, n_norm_rejected, n_clipped)``,
-    the counts int32 summed over the row axis.
+    weighted sum.  With every row finite and no norm rule hit, the output
+    is an exact select of ``u``: a guard that rejects nothing moves no
+    bit.  ``norm_d`` (the kernels' block-padded rows): the finite test and
+    the squared norms read the leading ``norm_d`` columns only, the true
+    row; the clip and the zeroing apply to the whole row.  valid: (..., n)
+    bool.  Returns ``(u_screened, valid_out, n_nonfinite,
+    n_norm_rejected, n_clipped)``, the counts int32 summed over the row
+    axis.
     """
     u = torch.as_tensor(u, dtype=torch.float32)
     valid = torch.as_tensor(valid, dtype=torch.bool, device=u.device)
-    finite = torch.isfinite(u).all(dim=-1)
+    u_t = u if norm_d is None else u[..., :norm_d]
+    finite = torch.isfinite(u_t).all(dim=-1)
     v1 = valid & finite
     n_nf = (valid & ~finite).sum(dim=-1, dtype=torch.int32)
     # rejected rows get +inf norms: they sort last and never reach the
     # median index, which counts only surviving rows
-    n2 = torch.where(v1, (u * u).sum(dim=-1), torch.inf)
+    n2 = torch.where(v1, (u_t * u_t).sum(dim=-1), torch.inf)
     if reject_mult is not None:
         srt = torch.sort(n2, dim=-1).values
         idx = torch.clamp(v1.sum(dim=-1) - 1, min=0) // 2
@@ -262,6 +274,43 @@ def screen_rows(u, valid, *, clip=None, reject_mult=None):
         n_clip = torch.zeros_like(n_nf)
     u = torch.where(v2[..., None], u, 0.0)
     return u, v2, n_nf, n_out, n_clip
+
+
+def guarded_aggregate_flat(stacked, fresh, tau, *, rule: str = "relay",
+                           beta: float = 0.35, use_kernel: bool = False,
+                           clip=None, reject_mult=None, quorum: int = 1):
+    """Screened, quorum-checked ``stale_synchronous_aggregate_flat``: the
+    per-stage engine's guarded server path.
+
+    Returns ``(aggregate (D,), weights (n,), info)``; ``info`` holds the
+    rejected-row counts (``nonfinite``, ``norm``), ``clipped``,
+    ``survivors`` and ``applied``, False when the survivors fall below
+    ``quorum`` (the caller then keeps its params).  The screened rows and
+    the survivor mask go to ``fused_staleness_aggregate`` (kernel 3) under
+    ``use_kernel``, else to the plain masked weights.  The kernel takes
+    ``fresh`` as given, so it gets ``fresh & survivors``: a rejected fresh
+    row then leaves ``n_f`` as the plain masked weights (the reference's
+    screened route) leave it.  A round the screen leaves clean hands either
+    the unguarded call's exact operands (the screen is an exact select, the
+    mask all true), so a guard that screens nothing moves no bit on any
+    route.
+    """
+    u, fr, ta, valid = bucket_pad(stacked, fresh, tau)
+    u2, v2, n_nf, n_out, n_clip = screen_rows(u, valid, clip=clip,
+                                              reject_mult=reject_mult)
+    n_nf, n_out, n_clip, survivors = torch.stack(
+        [n_nf, n_out, n_clip, v2.sum(dtype=torch.int32)]).tolist()
+    info = {"nonfinite": n_nf, "norm": n_out, "clipped": n_clip,
+            "survivors": survivors,
+            "applied": survivors >= max(int(quorum), 1)}
+    if use_kernel:
+        from repro_torch.kernels.staleness_agg import ops as agg_ops
+        agg, w = agg_ops.fused_staleness_aggregate(
+            pad_cols(u2, agg_ops.D_BLK), fr & v2, ta, beta, rule=rule,
+            valid=v2)
+        return agg[:u.shape[1]], w, info
+    agg, w = weights_and_aggregate_by_id(u2, fr, ta, v2, beta, RULE_ID[rule])
+    return agg, w, info
 
 
 # ---------------------------------------------------------------------------

@@ -84,6 +84,12 @@ class DeviceStaleCache:
         self._space.extend(old_c, self.capacity)
         self.grow_events += 1
 
+    def reserve(self, capacity: int) -> None:
+        """Grow until the cache holds at least ``capacity`` slots (a
+        resumed run takes its snapshot's capacity)."""
+        while self.capacity < capacity:
+            self._grow()
+
     def alloc(self, k: int) -> list:
         """Reserve ``k`` slots; returns them in allocation order."""
         while len(self._space.free) < k:

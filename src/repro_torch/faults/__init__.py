@@ -1,8 +1,8 @@
 """Seeded fault plans and coordinated attacks (port of ``repro.faults``).
 
-The engine applies the attacks; update corruption, post-drop, replay and
-host crashes stay with ROADMAP.md queue 1 item 10, so a plan that carries
-fault specs or a crash is refused by ``Simulator``.
+The engine applies all of a plan: update corruption (a per-row fp32
+multiplier after local training), post-training drops, replayed stale
+deliveries, host crashes after a round, and coordinated attacks.
 """
 from repro_torch.faults.attacks import (ATTACK_KINDS, AttackSpec,  # noqa: F401
                                         apply_attack, attack_key)

@@ -14,10 +14,12 @@ Two strategy styles, both composed with SAA staleness weighting:
   trim ``k = (c-1)//2``.  With ``use_agg_kernel`` the trim runs through the
   CUDA kernel ``repro_torch.kernels.trimmed_agg``.
 
-``robust_cell`` is the one composition (attack -> robust mask -> weights,
-or -> weighted rows -> trim) both substrates run: the fused pipeline on its
-gathered operand, the per-stage flat path through ``robust_host_aggregate``
-on its stacked rows, so the two agree bit for bit.
+``robust_cell`` is the one composition (attack -> guard screen -> robust
+mask -> weights, or -> weighted rows -> trim) both substrates run: the
+fused pipeline on its gathered operand, the per-stage flat path through
+``robust_host_aggregate`` on its stacked rows, so the two agree bit for
+bit.  The guard stage (``SimConfig.guard``) is ``core.aggregation.
+screen_rows``; its counts ride behind the robust ones.
 
 Invalid rows are excluded via ``valid``; for the coordinate-wise trim they
 become ``+inf`` so they rank past the band ``[k, c-k)``, and NaN entries are
@@ -193,26 +195,35 @@ def trimmed_weighted_aggregate(u, fresh, tau, valid, beta, rule_id, *,
 
 def robust_cell(u, fresh, tau, valid, att, *, attack, robust, beta: float,
                 rule_id: int, use_kernel: bool, no_stale: bool = False,
-                defer_trim: bool = False):
-    """Attack, robust strategy and aggregate for one cell's operand.
+                defer_trim: bool = False, guard=None):
+    """Attack, guard screen, robust strategy and aggregate for one cell's
+    operand.
 
     u: (n, D) fp32; fresh/valid: (n,) bool; tau: (n,) int32; att: (n,)
     bool attacker flags (read only when ``attack`` is set).  ``attack`` /
-    ``robust`` are ``attack_key`` / ``robust_key`` descriptors.  The SAA
-    part takes the plain torch weights path; ``use_kernel`` routes only
-    the coordinate-wise trim through the CUDA kernel.  ``no_stale`` (the
-    fused pipeline's round with no stale rows) weighs ``fresh & valid``
+    ``robust`` are ``attack_key`` / ``robust_key`` descriptors, ``guard``
+    the guard's ``(clip, reject_mult)`` (None: no guard).  The SAA part
+    takes the plain torch weights path; ``use_kernel`` routes only the
+    coordinate-wise trim through the CUDA kernel.  ``no_stale`` (the fused
+    pipeline's round with no stale rows) weighs ``fresh & valid``
     directly, the same weight bits as the general path.  Returns
-    ``(aggregate (D,), counts (2,) int32 [rows rejected, rows trimmed or
-    clipped])``, both on u's device (no host sync).  ``defer_trim`` (a
-    coordinate-wise kind) stops before the trim and returns ``((y, k_eff,
-    c), rows rejected)`` for ``robust_sweep`` to trim every group of a
-    round in one launch.
+    ``(aggregate (D,), counts int32 [rows rejected, rows trimmed or
+    clipped])``, both on u's device (no host sync); under a guard
+    ``counts`` goes on with [rejected non-finite, rejected norm,
+    survivors] (the survivors after the robust mask, which the quorum
+    reads).  ``defer_trim`` (a coordinate-wise kind) stops before the trim
+    and returns ``((y, k_eff, c), counts)`` without the trimmed count,
+    for ``robust_sweep`` to trim every group of a round in one launch.
     """
     zero = torch.zeros((), dtype=torch.int32, device=u.device)
     if attack is not None:
         kind, scale, z = attack
         u = apply_attack(u, att, valid, kind=kind, scale=scale, z=z)
+    screened = ()
+    if guard is not None:
+        u, valid, n_nf, n_out, _ = screen_rows(u, valid, clip=guard[0],
+                                               reject_mult=guard[1])
+        screened = (n_nf, n_out)
     rejected = trimmed = zero
     coord = robust is not None and robust[0] in COORD_KINDS
     if robust is not None and not coord:
@@ -225,11 +236,13 @@ def robust_cell(u, fresh, tau, valid, att, *, attack, robust, beta: float,
             u, valid, n_nf, n_out, trimmed = screen_rows(
                 u, valid, clip=clip, reject_mult=reject_mult)
             rejected = n_nf + n_out
+    if guard is not None:
+        screened += (valid.sum(dtype=torch.int32),)
     if coord and defer_trim:
         median = robust[0] == "coord_median"
         y, c = weighted_rows(u, fresh, tau, valid, beta, rule_id)
         return (y, _trim_depth(c, 0 if median else robust[1], median),
-                c), rejected
+                c), torch.stack((rejected,) + screened)
     if coord:
         median = robust[0] == "coord_median"
         out, trimmed = trimmed_weighted_aggregate(
@@ -241,11 +254,12 @@ def robust_cell(u, fresh, tau, valid, att, *, attack, robust, beta: float,
     else:
         out, _ = weights_and_aggregate_by_id(u, fresh, tau, valid, beta,
                                              rule_id)
-    return out, torch.stack([rejected, trimmed])
+    return out, torch.stack((rejected, trimmed) + screened)
 
 
 def robust_sweep(u, fresh, tau, valid, att, sizes, *, attack, robust,
-                 betas, rule_ids, use_kernel: bool, no_stale=None):
+                 betas, rule_ids, use_kernel: bool, no_stale=None,
+                 guard=None):
     """The robust step of a round's G aggregation groups (the reference's
     S-batched ``robust_sweep_fn``).
 
@@ -261,7 +275,8 @@ def robust_sweep(u, fresh, tau, valid, att, sizes, *, attack, robust,
     (G, max size, D) operand padded with ``+inf`` rows (past every band)
     and per-group ``k_eff`` / ``c``; the kernel's cells are independent and
     its variants equal bit for bit, so the padding moves no bit.  Returns
-    ``(aggregate (G, D), counts (G, 2) int32 [rejected, trimmed])``.
+    ``(aggregate (G, D), counts (G, 2) int32 [rejected, trimmed])``, under
+    a ``guard`` (G, 5) with ``robust_cell``'s guard counts behind.
     """
     coord = robust is not None and robust[0] in COORD_KINDS
     defer = coord and use_kernel
@@ -273,7 +288,7 @@ def robust_sweep(u, fresh, tau, valid, att, sizes, *, attack, robust,
             robust=robust, beta=betas[g], rule_id=rule_ids[g],
             use_kernel=use_kernel,
             no_stale=bool(no_stale is not None and no_stale[g]),
-            defer_trim=defer)
+            defer_trim=defer, guard=guard)
         outs.append(out)
         counts.append(cnt)
     if not defer:
@@ -289,18 +304,22 @@ def robust_sweep(u, fresh, tau, valid, att, sizes, *, attack, robust,
                                               k_eff, c)
     agg = torch.where((c > 0)[:, None], agg, 0.0)
     trimmed = torch.where(c > 0, 2 * k_eff, 0)
-    return agg, torch.stack([torch.stack(counts), trimmed], dim=1)
+    counts = torch.stack(counts)
+    return agg, torch.cat([counts[:, :1], trimmed[:, None], counts[:, 1:]],
+                          dim=1)
 
 
 def robust_host_aggregate(stacked, fresh, tau, att, *, attack, robust,
-                          use_kernel: bool, beta: float, rule: str):
+                          use_kernel: bool, beta: float, rule: str,
+                          guard=None):
     """The per-stage flat path's entry for attacked or robust rounds (S = 1).
 
     ``stacked``: (n, D) device rows, fresh first; ``fresh`` / ``tau`` /
-    ``att``: (n,) host or device values.  Runs ``robust_cell`` on exact
-    rows (the reference bucket-pads them with invalid rows, which changes
-    no result).  Returns ``(aggregate (D,), counts (2,) int32)`` as
-    ``robust_cell`` does.
+    ``att``: (n,) host or device values; ``guard``: ``(clip,
+    reject_mult)`` or None.  Runs ``robust_cell`` on exact rows (the
+    reference bucket-pads them with invalid rows, which changes no
+    result).  Returns ``(aggregate (D,), counts)`` as ``robust_cell``
+    does.
     """
     dev = stacked.device
     fr = torch.as_tensor(fresh, dtype=torch.bool, device=dev)
@@ -309,4 +328,5 @@ def robust_host_aggregate(stacked, fresh, tau, att, *, attack, robust,
           else torch.as_tensor(att, dtype=torch.bool, device=dev))
     return robust_cell(stacked, fr, ta, torch.ones_like(fr), at,
                        attack=attack, robust=robust, beta=beta,
-                       rule_id=RULE_ID[rule], use_kernel=use_kernel)
+                       rule_id=RULE_ID[rule], use_kernel=use_kernel,
+                       guard=guard)

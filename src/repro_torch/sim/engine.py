@@ -16,7 +16,12 @@ flat path below (``_run_loop``: train, collect, aggregate, apply, record),
 which the fused pipeline is held against bit for bit.  Both serve FedAvg
 and YoGi server steps, with or without the SAA kernels, and the robust
 aggregators (``repro_torch.robust``) under coordinated attacks
-(``repro_torch.faults``).  The host side —
+(``repro_torch.faults``); both run a ``FaultPlan``'s update corruption,
+post-training drops, replays and crash, the guard (``SimConfig.guard``:
+rows screened before they are weighted, the apply skipped below
+``quorum`` survivors) and crash-safe snapshots at round boundaries
+(``run(checkpoint_path=, checkpoint_every=)``, resumed by
+``repro_torch.checkpoint.resume_run``).  The host side —
 the round stages below — is numpy with the reference's RNG draw order, so
 for the same config, seed and initial weights every host decision (cohort,
 arrival schedule, fresh/straggler split, stale landings, APT targets,
@@ -25,6 +30,7 @@ slice raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -34,6 +40,7 @@ from torch.profiler import record_function
 
 from repro_torch.core.aggregation import (bucket_block, fedavg_apply,
                                           flat_dim, flatten_update,
+                                          guarded_aggregate_flat,
                                           make_flat_spec,
                                           stale_synchronous_aggregate_flat,
                                           unflatten_update, yogi_apply_flat,
@@ -136,7 +143,6 @@ class SimConfig:
 # ports it)
 _UNPORTED = (
     (lambda c: not c.fast_path, "the legacy pytree engine (fast_path=False)", 15),
-    (lambda c: c.guard, "guarded aggregation / quorum", 10),
     (lambda c: c.telemetry != 0, "telemetry", 12),
     (lambda c: bool(c.shard_participants), "participant sharding", 14),
     (lambda c: c.benchmark in part.TOKEN_BENCHMARKS, "token benchmarks", 2),
@@ -291,15 +297,9 @@ def resolve_device(device) -> torch.device:
 
 
 def _attach_attack(cfg: SimConfig, fault_plan):
-    """The run's fault plan: ``fault_plan`` (attacker sets only: a plan
-    with fault specs or a crash raises), with ``cfg``'s coordinated attack
-    attached when it has none (the reference's auto-attach)."""
-    if fault_plan is not None and (fault_plan.specs
-                                   or fault_plan.crash_after is not None):
-        raise NotImplementedError(
-            "fault plans with update corruption, post-drop, replay or a "
-            "crash are not ported to repro_torch yet "
-            "(ROADMAP.md queue 1 item 10)")
+    """The run's fault plan: ``fault_plan``, with ``cfg``'s coordinated
+    attack attached when it has none (the reference's auto-attach; a
+    restored plan already carries its attack)."""
     if attack_key(cfg) is None:
         return fault_plan
     plan = fault_plan
@@ -481,6 +481,11 @@ class Simulator:
         self._attack, self._robust = attack_key(cfg), robust_key(cfg)
         self.robust_counts = torch.zeros(2, dtype=torch.int32,
                                          device=self.device)
+        # the fused pipeline's device guard counters [rejected non-finite,
+        # rejected norm, quorum skips] (the flat path notes its own on the
+        # host, one aggregation at a time)
+        self.guard_counts = torch.zeros(3, dtype=torch.int32,
+                                        device=self.device)
         self.stale_cache: list[_InFlight] = []
         self.busy_until = np.zeros(cfg.n_learners)  # device busy training/uploading
         self.mu = cfg.deadline  # initial round-duration estimate
@@ -564,12 +569,18 @@ class Simulator:
         t_now, chosen, durs, drop_at = plan.t_now, plan.chosen, plan.durs, plan.drop_at
         n_t = plan.n_t
 
+        fp = self.fault_plan
         arrivals = []   # (arrival_time, idx into chosen) for non-dropouts
         for i, lid in enumerate(chosen):
             if np.isfinite(drop_at[i]):
                 # device went away mid-round: partial work, always wasted
                 self.acct.charge(float(drop_at[i]), wasted=True)
                 self.busy_until[lid] = t_now + float(drop_at[i])
+            elif fp is not None and fp.post_drop(r, lid):
+                # injected fault: trained, lost before upload; the full
+                # duration is charged and wasted, no arrival, no feedback
+                self.acct.charge(float(durs[i]), wasted=True)
+                self.busy_until[lid] = t_now + float(durs[i])
             else:
                 arrivals.append((t_now + durs[i], i))
                 self.acct.charge(float(durs[i]), wasted=False)
@@ -613,6 +624,11 @@ class Simulator:
                     landing.append(f)
                     landing_taus.append(tau)
                     self.acct.unique.add(f.learner_id)
+                    if fp is not None and fp.replay(r, f.learner_id):
+                        # injected fault: the same stale delivery lands
+                        # twice, a duplicate row in the operand
+                        landing.append(f)
+                        landing_taus.append(tau)
                 else:
                     expired.append(f)
                     self.acct.mark_wasted(f.duration)
@@ -658,6 +674,18 @@ class Simulator:
         l2s[surv] = l2.cpu().numpy()
         return deltas, pos, l2s
 
+    def _corrupt_deltas(self, r: int, plan: RoundPlan, deltas):
+        """The fault plan's update corruption of a round's trained rows
+        ``deltas`` (the plan's survivors, in plan order): one fp32 multiply
+        a row after training and before caching or aggregation, the
+        operation the fused pipeline runs on its packed rows.  Losses and
+        l2 stats stay those of the clean rows."""
+        fp = self.fault_plan
+        if deltas is None or fp is None or not fp.has_corruption:
+            return deltas
+        scale = fp.scale_for(r, plan.chosen)[self.survivors(plan)[0]]
+        return deltas * torch.as_tensor(scale, device=deltas.device)[:, None]
+
     def _collect_updates(self, r: int, plan: RoundPlan, deltas, pos, l2s):
         """Schedule the round, apply selector feedback (stat utility from
         ``l2s``, by plan row), then take the scheduled rows out of the
@@ -677,24 +705,41 @@ class Simulator:
                 agg_lids(plan, sched))
 
     def _aggregate(self, r, lids, fresh_updates, stale_updates, stale_taus):
-        """The aggregated delta (D,) of round ``r``'s rows, fresh first.
-        Attacked or robust rounds take ``robust_host_aggregate``, with the
-        attacker flags of the rows' learner ids ``lids`` (a stale row is
-        flagged for the round it lands)."""
+        """The aggregated delta (D,) of round ``r``'s rows, fresh first, or
+        None when the guard's quorum check rejects the round (the caller
+        keeps its params).  Attacked or robust rounds take
+        ``robust_host_aggregate`` (attack, guard screen, robust mask,
+        weights), with the attacker flags of the rows' learner ids
+        ``lids`` (a stale row is flagged for the round it lands); guarded
+        ones ``guarded_aggregate_flat``.  Guard counts are noted here."""
         cfg = self.cfg
         nf, ns = len(fresh_updates), len(stale_updates)
         stacked = torch.stack(fresh_updates + stale_updates)
+        guard = (cfg.guard_clip, cfg.guard_reject_mult) if cfg.guard else None
+        quorum = max(int(cfg.quorum), 1)
         if self._attack is not None or self._robust is not None:
             agg, counts = robust_host_aggregate(
                 stacked, [True] * nf + [False] * ns, [0] * nf + list(stale_taus),
                 self.attack_flags(r, lids), attack=self._attack,
                 robust=self._robust, use_kernel=cfg.use_agg_kernel,
-                beta=cfg.beta, rule=cfg.scaling_rule)
-            self.robust_counts += counts
-            return agg
+                beta=cfg.beta, rule=cfg.scaling_rule, guard=guard)
+            self.robust_counts += counts[:2]
+            if guard is None:
+                return agg
+            n_nf, n_out, survivors = counts[2:].tolist()
+            self.acct.note_guard(n_nf, n_out, survivors >= quorum)
+            return agg if survivors >= quorum else None
         fresh = torch.arange(nf + ns, device=self.device) < nf
         tau = torch.as_tensor(np.asarray([0] * nf + list(stale_taus),
                                          np.int32), device=self.device)
+        if guard is not None:
+            agg, _, info = guarded_aggregate_flat(
+                stacked, fresh, tau, rule=cfg.scaling_rule, beta=cfg.beta,
+                use_kernel=cfg.use_agg_kernel, clip=guard[0],
+                reject_mult=guard[1], quorum=quorum)
+            self.acct.note_guard(info["nonfinite"], info["norm"],
+                                 info["applied"])
+            return agg if info["applied"] else None
         agg, _ = stale_synchronous_aggregate_flat(
             stacked, fresh, tau, rule=cfg.scaling_rule, beta=cfg.beta,
             use_kernel=cfg.use_agg_kernel)
@@ -773,23 +818,101 @@ class Simulator:
             self.acct.mark_wasted(f.duration)
         if self._robust is not None:       # the run's one read of the counts
             self.acct.note_robust(*self.robust_counts.tolist())
+        if self.cfg.guard:                 # the fused pipeline's counters
+            n_nf, n_out, skips = self.guard_counts.tolist()
+            self.acct.note_guard(n_nf, n_out, skips=skips)
         self.params = unflatten_update(self.flat_params, self._flat_spec)
         return self.acct
 
-    def run(self, progress: bool = False) -> Accounting:
+    # ------------------------------------------------------------------
+    # Snapshots (crash-safe resume at round and chunk boundaries)
+    # ------------------------------------------------------------------
+
+    def capture_state(self, stale_rows=None, robust_counts=None,
+                      guard_counts=None) -> dict:
+        """Everything mutable the round loop reads, as host objects that
+        pickle: RNG stream, selector, APT, accounting, forecasters, busy
+        clocks, the stale cache's entries with their rows (``stale_rows``,
+        aligned with ``stale_cache``: the fused pipeline gathers them from
+        its device cache, where an entry's ``delta`` is a slot id) and the
+        device counters not yet noted in the accounting (the pipeline
+        passes its own rows of them)."""
+        fb = self.fbank
+        entries = []
+        for k, f in enumerate(self.stale_cache):
+            row = f.delta if stale_rows is None else stale_rows[k]
+            entries.append((f.learner_id, f.origin_round, f.arrival,
+                            f.duration, f.stat_util,
+                            torch.as_tensor(row).cpu().numpy()))
+        counts = {"robust": (self.robust_counts if robust_counts is None
+                             else robust_counts),
+                  "guard": (self.guard_counts if guard_counts is None
+                            else guard_counts)}
+        return {"rng": self.rng.bit_generator.state,
+                "selector": copy.deepcopy(self.selector),
+                "apt": copy.deepcopy(self.apt),
+                "busy_until": self.busy_until.copy(), "mu": self.mu,
+                "t_now": self._t_now, "acct": copy.deepcopy(self.acct),
+                "fbank": (fb.counts.copy(), fb.avail_counts.copy(),
+                          fb.recent.copy()),
+                "counts": {k: v.cpu().numpy() for k, v in counts.items()},
+                "stale": entries}
+
+    def restore_state(self, st: dict) -> None:
+        """Inverse of ``capture_state``.  Stale entries come back with
+        their rows as device tensors in ``delta``; a fused pipeline
+        re-seats them into its device cache
+        (``repro_torch.checkpoint.state``)."""
+        self.rng.bit_generator.state = st["rng"]
+        self.selector = copy.deepcopy(st["selector"])
+        self.apt = copy.deepcopy(st["apt"])
+        self.busy_until = np.array(st["busy_until"])
+        self.mu = st["mu"]
+        self._t_now = st["t_now"]
+        self.acct = copy.deepcopy(st["acct"])
+        self.fbank.counts, self.fbank.avail_counts, self.fbank.recent = (
+            np.array(a) for a in st["fbank"])
+        self.robust_counts = torch.as_tensor(st["counts"]["robust"],
+                                             device=self.device).clone()
+        self.guard_counts = torch.as_tensor(st["counts"]["guard"],
+                                            device=self.device).clone()
+        self.stale_cache = [
+            _InFlight(lid, orig, arr, dur,
+                      torch.as_tensor(row, device=self.device), su)
+            for (lid, orig, arr, dur, su, row) in st["stale"]]
+
+    def run(self, progress: bool = False, *,
+            checkpoint_path: Optional[str] = None,
+            checkpoint_every: int = 0) -> Accounting:
+        """Run every round; with ``checkpoint_path`` and
+        ``checkpoint_every``, a snapshot every ``checkpoint_every`` rounds
+        (the fused pipeline: at the first chunk boundary past each)."""
         if self.cfg.fused_rounds:
             from repro_torch.sim.pipeline import RoundPipeline
-            return RoundPipeline([self], progress=progress).run()[0]
+            return RoundPipeline([self], progress=progress,
+                                 checkpoint_path=checkpoint_path,
+                                 checkpoint_every=checkpoint_every).run()[0]
         self._t_now = 0.0
-        return self._run_loop(progress)
+        return self._run_loop(0, progress, checkpoint_path, checkpoint_every)
 
-    def _run_loop(self, progress: bool) -> Accounting:
-        """The per-stage flat round loop."""
-        for r in range(self.cfg.rounds):
+    def _run_loop(self, start_round: int, progress: bool,
+                  checkpoint_path: Optional[str] = None,
+                  checkpoint_every: int = 0) -> Accounting:
+        """The per-stage flat round loop from ``start_round`` (a restored
+        Simulator resumes here without resetting its clock), with the
+        snapshot and crash hooks after each round."""
+        fp, rounds = self.fault_plan, self.cfg.rounds
+        for r in range(start_round, rounds):
             if self._flat_round(r, progress) is not None and \
                     self._target_reached():
                 self.acct.stopped_early = True
                 break
+            if checkpoint_path and checkpoint_every and \
+                    (r + 1) % checkpoint_every == 0 and r + 1 < rounds:
+                from repro_torch.checkpoint.state import save_engine_snapshot
+                save_engine_snapshot(checkpoint_path, self, r + 1)
+            if fp is not None and fp.crash_due(r):
+                fp.trigger_crash(r)
         return self._finalize()
 
     def _flat_round(self, r: int, progress: bool):
@@ -802,13 +925,15 @@ class Simulator:
             return None
         with record_function("round.device"):
             deltas, pos, l2s = self._train(plan)
+            deltas = self._corrupt_deltas(r, plan, deltas)
         with record_function("round.schedule"):
             t_end, fresh, stale, taus, lids = self._collect_updates(
                 r, plan, deltas, pos, l2s)
         if fresh or stale:
             with record_function("round.device"):
-                self._apply_update(self._aggregate(r, lids, fresh, stale,
-                                                   taus))
+                agg = self._aggregate(r, lids, fresh, stale, taus)
+                if agg is not None:
+                    self._apply_update(agg)
         with record_function("round.eval"):
             return self._record_round(r, plan.t_now, t_end, len(plan.chosen),
                                       len(fresh), len(stale),

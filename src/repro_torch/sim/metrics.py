@@ -12,8 +12,7 @@ from typing import List, TypedDict
 
 
 class SimSummary(TypedDict):
-    """Fixed-key summary of one simulation run (the reference's keys; the
-    guard counters stay 0 until guards are ported)."""
+    """Fixed-key summary of one simulation run (the reference's keys)."""
     rounds: int
     sim_time: float
     resource_used: float
@@ -23,9 +22,9 @@ class SimSummary(TypedDict):
     final_accuracy: float
     best_accuracy: float
     stopped_early: bool
-    rejected_nonfinite: int
-    rejected_norm: int
-    quorum_skips: int
+    rejected_nonfinite: int      # guard: update rows rejected for NaN/Inf
+    rejected_norm: int           # guard: rows rejected as norm outliers
+    quorum_skips: int            # rounds whose server apply was skipped (quorum)
     robust_rejected: int         # robust aggregator: rows rejected (krum /
                                  # multi_krum losers, norm_median_clip rejects)
     robust_trimmed: int          # robust aggregator: rows trimmed per
@@ -57,8 +56,20 @@ class Accounting:
     resource_wasted: float = 0.0
     unique: set = dataclasses.field(default_factory=set)
     stopped_early: bool = False   # accuracy-target early stop fired
+    rejected_nonfinite: int = 0   # guard: rows rejected for NaN/Inf values
+    rejected_norm: int = 0        # guard: rows rejected as norm outliers
+    quorum_skips: int = 0         # rounds where the apply was quorum-skipped
     robust_rejected: int = 0      # robust aggregator: rows rejected
     robust_trimmed: int = 0       # robust aggregator: rows trimmed/clipped
+
+    def note_guard(self, nonfinite: int, norm: int, applied: bool = True,
+                   skips: int = 0):
+        """Record guard outcomes: one aggregation's (``applied`` False
+        counts a quorum skip), or a run's device-side totals (``skips``
+        quorum skips)."""
+        self.rejected_nonfinite += int(nonfinite)
+        self.rejected_norm += int(norm)
+        self.quorum_skips += int(skips) + (not applied)
 
     def note_robust(self, rejected: int, trimmed: int):
         """Record robust-strategy outcomes (one aggregation's, or a run's
@@ -89,7 +100,9 @@ class Accounting:
             final_accuracy=accs[-1] if accs else float("nan"),
             best_accuracy=max(accs) if accs else float("nan"),
             stopped_early=self.stopped_early,
-            rejected_nonfinite=0, rejected_norm=0, quorum_skips=0,
+            rejected_nonfinite=self.rejected_nonfinite,
+            rejected_norm=self.rejected_norm,
+            quorum_skips=self.quorum_skips,
             robust_rejected=self.robust_rejected,
             robust_trimmed=self.robust_trimmed,
         )

@@ -18,12 +18,18 @@ chunks of up to K = ``SimConfig.rounds_per_dispatch`` rounds, broken at
   3. each round's device work (``_device_round``), from its block alone:
      the survivors' local batches gathered from one copy of each distinct
      substrate's dataset and trained in one batched call, each row from
-     its cell's model; every trained row scattered into the batch's one
+     its cell's model; under a fault plan's update corruption each trained
+     row times its fp32 multiplier (carried in the block as bit
+     patterns); every trained row scattered into the batch's one
      device stale cache (a straggler into its slot, any other row into the
      trash slot) *before* the operand gathers its landing rows; the
      round's groups (the cells with fresh or landing rows) as one (G, n, D)
-     operand, a group's rows first, then invalid zero rows; and the server
-     step: under ``use_agg_kernel`` FedAvg is ONE launch of
+     operand, a group's rows first, then invalid zero rows; under the
+     guard (``SimConfig.guard``) the operand's rows screened
+     (``core.aggregation.screen_rows``: non-finite and norm-outlier rows
+     rejected and zeroed, survivors clipped), the survivor mask in place
+     of the valid one; and the server step: under ``use_agg_kernel``
+     FedAvg is ONE launch of
      ``sweep_fused_staleness_apply`` (kernel 1) with per-cell ``(beta,
      server_lr)`` rows, YoGi one launch of ``sweep_fused_staleness_aggregate``
      (kernel 2) before its batched elementwise step; an attacked or robust
@@ -31,9 +37,16 @@ chunks of up to K = ``SimConfig.rounds_per_dispatch`` rounds, broken at
      kinds under ``use_agg_kernel``: ONE launch of kernel 7 for the G
      groups); without the kernels each group runs ``core.aggregation``'s
      torch path on its own rows.  A round in which no cell aggregates runs
-     no server step;
+     no server step; under the guard a group whose survivors fall below
+     ``quorum`` keeps its params and YoGi state (its step is computed and
+     discarded, as in the reference);
   4. at an ``eval_every`` boundary, the evaluation of every live cell in
-     one batched call per substrate, and the early stops.
+     one batched call per substrate, and the early stops;
+  5. at the chunk's end, a snapshot when one is due
+     (``checkpoint_path``, ``checkpoint_every``), then the fault plans'
+     crash.  Snapshots and crashes come only at chunk boundaries, so a
+     resumed run (``start_round``, ``repro_torch.checkpoint``) walks the
+     chunks the uninterrupted run walks.
 
 On the card a round of a non-robust batch under the SAA kernels is
 replayed from a CUDA graph captured once per bucket (``graphs.py``): one
@@ -93,12 +106,12 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core.aggregation import (bucket_block, flat_dim,
-                                          no_stale_aggregate,
+                                          no_stale_aggregate, screen_rows,
                                           weights_and_aggregate_by_id,
                                           yogi_apply_flat, yogi_init_flat)
 from repro_torch.core.stale_cache import DeviceStaleCache
 from repro_torch.core.staleness import RULE_ID
-from repro_torch.faults import attack_key
+from repro_torch.faults import InjectedCrash, attack_key
 from repro_torch.kernels.staleness_agg import ops as saa_ops
 from repro_torch.learners import model_key
 from repro_torch.robust import robust_key
@@ -171,13 +184,27 @@ class RoundWork:
 
 def _quarantine_frees(order, scheds) -> list:
     """Cache slots released by a round's landings and expiries (every
-    cell's); the pipeline frees them one round later."""
-    return [f.delta for i in order
-            for f in scheds[i].landing + scheds[i].expired]
+    cell's), one per in-flight entry: a replay fault lands an entry twice,
+    and its slot is freed once.  The pipeline frees them one round
+    later."""
+    out, seen = [], set()
+    for i in order:
+        for f in scheds[i].landing + scheds[i].expired:
+            if id(f) not in seen:
+                seen.add(id(f))
+                out.append(f.delta)
+    return out
+
+
+def _fp32_bits(x) -> np.ndarray:
+    """fp32 values as int32 bit patterns (the int64 block carries them)."""
+    return np.asarray(x, np.float32).view(np.int32)
 
 
 class RoundPipeline:
-    def __init__(self, sims, progress: bool = False):
+    def __init__(self, sims, progress: bool = False, *,
+                 checkpoint_path=None, checkpoint_every: int = 0,
+                 checkpoint_wrap=None, start_round: int = 0):
         sims = list(sims) if isinstance(sims, (list, tuple)) else [sims]
         cfg0 = sims[0].cfg
         for sim in sims:
@@ -188,11 +215,24 @@ class RoundPipeline:
                 raise ValueError("a pipeline batch runs on one device")
         self.sims = sims
         self.progress = progress
+        # snapshots every ``checkpoint_every`` rounds at chunk boundaries;
+        # ``checkpoint_wrap`` wraps each payload (a sweep's envelope)
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = int(checkpoint_every or 0)
+        self.checkpoint_wrap = checkpoint_wrap
+        self.start_round = int(start_round)
+        self._next_ckpt = self.start_round + self.checkpoint_every
         self.device = dev = sims[0].device
         self.spec = sims[0]._flat_spec
         self.d = flat_dim(self.spec)
         self.attack, self.robust = attack_key(cfg0), robust_key(cfg0)
         robust = self.attack is not None or self.robust is not None
+        # the guard (clip, reject_mult, quorum) and whether any cell's plan
+        # corrupts updates: both fix the round's device work
+        self.guard = ((cfg0.guard_clip, cfg0.guard_reject_mult,
+                       max(int(cfg0.quorum), 1)) if cfg0.guard else None)
+        self.faulty = any(sim.fault_plan is not None
+                          and sim.fault_plan.has_corruption for sim in sims)
         # the SAA kernels' route: padded shapes, graphed on the card
         self.kernel_route = cfg0.use_agg_kernel and not robust
         self.d_pad = (self.d + (-self.d) % saa_ops.D_BLK
@@ -209,11 +249,17 @@ class RoundPipeline:
                                      for sim in sims), device=dev)
         self.yogi = cfg0.server_opt == "yogi"
         if self.yogi:
+            # each cell's YoGi state (a resumed run's restored one), the
+            # scratch row a fresh state
             st = yogi_init_flat(self.d, device=dev, width=self.d_pad)
             self.opt_state = {"m": st["m"].repeat(s + 1, 1),
                               "v": st["v"].repeat(s + 1, 1),
                               "t": torch.zeros(s + 1, dtype=torch.int32,
                                                device=dev)}
+            for i, sim in enumerate(sims):
+                for k in ("m", "v"):
+                    self.opt_state[k][i, :self.d] = sim.flat_opt_state[k]
+                self.opt_state["t"][i] = sim.flat_opt_state["t"]
         else:
             self.opt_state = None
         # per-cell (beta, server_lr) rows, the scratch row a copy of cell
@@ -221,8 +267,15 @@ class RoundPipeline:
         self._scal = torch.tensor([[sim.cfg.beta, sim.cfg.server_lr]
                                    for sim in sims + sims[:1]],
                                   dtype=torch.float32, device=dev)
-        self.robust_counts = torch.zeros((s, 2), dtype=torch.int32,
-                                         device=dev)
+        # device counters, from each cell's own (a resumed run's restored
+        # ones): robust [rejected, trimmed]; guard [rejected non-finite,
+        # rejected norm, quorum skips], with the scratch row padding
+        # groups add to
+        self.robust_counts = torch.stack([sim.robust_counts
+                                          for sim in sims])
+        self.guard_counts = torch.cat([
+            torch.stack([sim.guard_counts for sim in sims]),
+            torch.zeros((1, 3), dtype=torch.int32, device=dev)])
         self.data = SharedData(sims, dev)
         self.fetch_l2s = sims[0]._sel_spec.needs_feedback
         # a feedback selector's stats are device data the next round's
@@ -245,10 +298,14 @@ class RoundPipeline:
         the pipeline then reads and writes its buffers."""
         static = {"params": self.params, "scal": self._scal,
                   "x": self.data.x_train, "y": self.data.y_train,
-                  **(self.opt_state or {})}
+                  **(self.opt_state or {}),
+                  **({"gcount": self.guard_counts} if self.guard else {})}
+        # the guard and the corruption multiplier change the round's work:
+        # a guarded or faulted run never replays another's graphs
         key = (str(self.device), self.s, self.d, self.d_pad, self.yogi,
                cfg0.scaling_rule, self.spec, cfg0.local_lr, cfg0.prox_mu,
-               cfg0.local_steps, cfg0.local_batch, model_key(cfg0)) + tuple(
+               cfg0.local_steps, cfg0.local_batch, model_key(cfg0),
+               self.guard, self.faulty) + tuple(
             (k, tuple(t.shape), t.dtype) for k, t in static.items())
         ws = acquire(key)
         if ws is None:     # its own copies: the data may be a substrate's
@@ -262,25 +319,43 @@ class RoundPipeline:
         self.data.x_train, self.data.y_train = b["x"], b["y"]
         if self.yogi:
             self.opt_state = {k: b[k] for k in ("m", "v", "t")}
+        if self.guard:
+            self.guard_counts = b["gcount"]
         self.cache.rows = ws.cache_rows(self.cache.rows)
         return ws
 
     def run(self):
-        """Drive every round in chunks of up to K, broken at evaluation
-        rounds, then finalize; returns the cells' Accountings, in batch
-        order."""
-        for sim in self.sims:
-            sim._t_now = 0.0
-        r, rounds = 0, self.sims[0].cfg.rounds
-        while r < rounds and not all(self.done):
-            chunk = []
-            while len(chunk) < self.k_rounds:
-                chunk.append(r)
-                if self.sims[0].eval_due(r):
-                    break
-                r += 1
-            r = chunk[-1] + 1
-            self._run_chunk(chunk)
+        """Drive every round from ``start_round`` in chunks of up to K,
+        broken at evaluation rounds, then finalize; returns the cells'
+        Accountings, in batch order.  After each chunk: a snapshot when
+        one is due, then any scheduled crash (a soft crash hands the
+        graphs back before it propagates)."""
+        if self.start_round == 0:
+            for sim in self.sims:
+                sim._t_now = 0.0
+        r, rounds = self.start_round, self.sims[0].cfg.rounds
+        plans = [sim.fault_plan for sim in self.sims
+                 if sim.fault_plan is not None]
+        try:
+            while r < rounds and not all(self.done):
+                chunk = []
+                while len(chunk) < self.k_rounds:
+                    chunk.append(r)
+                    if self.sims[0].eval_due(r):
+                        break
+                    r += 1
+                r = chunk[-1] + 1
+                self._run_chunk(chunk)
+                if (self.checkpoint_path and self.checkpoint_every
+                        and r >= self._next_ckpt and r < rounds):
+                    self.checkpoint(r)
+                    self._next_ckpt = r + self.checkpoint_every
+                for fp in plans:
+                    if fp.crash_due(r - 1):
+                        fp.trigger_crash(r - 1)
+        except InjectedCrash:
+            self._release()
+            raise
         return self.finalize()
 
     def step(self, r: int) -> list:
@@ -400,14 +475,16 @@ class RoundPipeline:
     def _layout(self, b: Bucket) -> dict:
         """Segment -> (start, stop) of a block of bucket ``b``: sample
         indices, row cells, scatter slots, fresh and stale gather rows,
-        the (fresh, valid, tau) masks, the groups' params rows, and the
-        attacker flags of an attacked batch."""
+        the (fresh, valid, tau) masks, the groups' params rows, the
+        attacker flags of an attacked batch, and the trained rows'
+        corruption multipliers (fp32 bits) of a faulted one."""
         cfg = self.sims[0].cfg
         gn = b.groups * b.n
         sizes = (("bidx", b.rows * cfg.local_steps * cfg.local_batch),
                  ("cell", b.rows), ("scat", b.rows), ("fidx", gn),
                  ("sidx", gn), ("meta", 3 * gn), ("agg", b.groups),
-                 ("att", gn if self.attack is not None else 0))
+                 ("att", gn if self.attack is not None else 0),
+                 ("fscale", b.rows if self.faulty else 0))
         out, off = {}, 0
         for name, size in sizes:
             out[name] = (off, off + size)
@@ -432,7 +509,7 @@ class RoundPipeline:
                    self.cache.capacity)
         work.groups, work.sizes, work.bucket = groups, sizes, b
         lay = self._layout(b)
-        block = np.zeros(lay["att"][1], np.int64)
+        block = np.zeros(lay["fscale"][1], np.int64)
 
         def seg(name):
             lo, hi = lay[name]
@@ -448,6 +525,16 @@ class RoundPipeline:
                 pos = sims[i].survivors(work.plans[i])[1]
                 for (row, _l, _a, _d), slot in zip(sc.new_stale, sc.slots):
                     scat[work.first[i] + pos[row]] = slot
+            if self.faulty:
+                fscale = seg("fscale")
+                fscale[:] = _fp32_bits(1.0)
+                for i in work.order:
+                    fp, plan = sims[i].fault_plan, work.plans[i]
+                    if fp is not None and fp.has_corruption:
+                        surv = sims[i].survivors(plan)[0]
+                        lo = work.first[i]
+                        fscale[lo:lo + len(surv)] = _fp32_bits(
+                            fp.scale_for(work.r, plan.chosen)[surv])
         if not g:
             return block
         fidx = seg("fidx").reshape(g, n)
@@ -511,6 +598,9 @@ class RoundPipeline:
             if b.rows:
                 deltas, l2 = train_rows(self.sims, self.data, self.params,
                                         v["bidx"], v["cell"])
+                if self.faulty:          # the uplink's corruption, per row
+                    deltas = deltas * v["fscale"].to(torch.int32).view(
+                        torch.float32)[:, None]
                 # the stragglers into their slots (the rest into the trash
                 # slot) before the operand gathers this round's landings
                 self.cache.rows[v["scat"]] = deltas
@@ -521,7 +611,8 @@ class RoundPipeline:
 
     def _server_step(self, b: Bucket, v, deltas, work) -> None:
         """The round's (G, n, D) operand and its server step, in place on
-        the groups' params rows (and YoGi state, robust counters)."""
+        the groups' params rows (and YoGi state, robust and guard
+        counters)."""
         cfg0 = self.sims[0].cfg
         meta = v["meta"].view(3, b.groups, b.n)
         fresh, valid = meta[0].bool(), meta[1].bool()
@@ -532,13 +623,28 @@ class RoundPipeline:
         u = torch.where(valid.view(-1, 1), u, 0.0).view(b.groups, b.n,
                                                         self.d_pad)
         cells, rule = v["agg"], cfg0.scaling_rule
-        if self.kernel_route and not self.yogi:
-            rows = self.params[cells]
-            saa_ops.sweep_fused_staleness_apply(
-                rows, u, fresh, tau, valid, self._scal[cells], rule=rule)
-            self.params[cells] = rows
-            return
+        has = valid.any(dim=1)
+        screened = None      # (G, 3) [rejected non-finite, norm, survivors]
+        if self.kernel_route and self.guard is not None:
+            # the whole padded operand at once (its true D columns), the
+            # survivors as the kernels' valid mask; ``fresh`` stays
+            # unmasked, as the reference passes it
+            with record_function("round.screen"):
+                u, valid, n_nf, n_out, _ = screen_rows(
+                    u, valid, clip=self.guard[0], reject_mult=self.guard[1],
+                    norm_d=self.d if self.d_pad != self.d else None)
+                screened = torch.stack(
+                    [n_nf, n_out, valid.sum(dim=1, dtype=torch.int32)], 1)
         if self.kernel_route:
+            gate = self._note_guard(cells, has, screened)
+            if not self.yogi:
+                old = self.params[cells]
+                rows = old if gate is None else old.clone()
+                saa_ops.sweep_fused_staleness_apply(
+                    rows, u, fresh, tau, valid, self._scal[cells], rule=rule)
+                self.params[cells] = (rows if gate is None else
+                                      torch.where(gate[:, None], rows, old))
+                return
             agg, _ = saa_ops.sweep_fused_staleness_aggregate(
                 u, fresh, tau, self._scal[cells, 0].contiguous(), valid,
                 rule=rule)
@@ -552,21 +658,52 @@ class RoundPipeline:
                 betas=[sims[i].cfg.beta for i in groups],
                 rule_ids=[RULE_ID[sims[i].cfg.scaling_rule] for i in groups],
                 use_kernel=cfg0.use_agg_kernel,
-                no_stale=[not work.scheds[i].landing for i in groups])
-            self.robust_counts[cells] += counts
+                no_stale=[not work.scheds[i].landing for i in groups],
+                guard=None if self.guard is None else self.guard[:2])
+            self.robust_counts[cells] += counts[:, :2]
+            gate = self._note_guard(cells, has,
+                                    counts[:, 2:] if self.guard else None)
         else:
-            agg = torch.stack([self._plain_aggregate(
-                self.sims[i].cfg, u[k, :m], fresh[k, :m], tau[k, :m],
-                valid[k, :m], not work.scheds[i].landing)
-                for k, (i, m) in enumerate(zip(work.groups, work.sizes))])
+            aggs, stats = [], []
+            for k, (i, m) in enumerate(zip(work.groups, work.sizes)):
+                uk, vk = u[k, :m], valid[k, :m]
+                if self.guard is not None:    # each group on its own rows
+                    uk, vk, n_nf, n_out, _ = screen_rows(
+                        uk, vk, clip=self.guard[0],
+                        reject_mult=self.guard[1])
+                    stats.append(torch.stack(
+                        [n_nf, n_out, vk.sum(dtype=torch.int32)]))
+                aggs.append(self._plain_aggregate(
+                    self.sims[i].cfg, uk, fresh[k, :m], tau[k, :m], vk,
+                    not work.scheds[i].landing))
+            agg = torch.stack(aggs)
+            gate = self._note_guard(cells, has,
+                                    torch.stack(stats) if stats else None)
+        old = self.params[cells]
         if self.yogi:
             st = {key: s[cells] for key, s in self.opt_state.items()}
-            new, st = yogi_apply_flat(self.params[cells], agg, st)
-            self.params[cells] = new
-            for key, s in st.items():
+            new, st_new = yogi_apply_flat(old, agg, st)
+            for key, s in st_new.items():
+                if gate is not None:        # a quorum skip keeps the state
+                    s = torch.where(gate.view((-1,) + (1,) * (s.dim() - 1)),
+                                    s, st[key])
                 self.opt_state[key][cells] = s
         else:
-            self.params[cells] += self._scal[cells, 1:2] * agg
+            new = old + self._scal[cells, 1:2] * agg
+        self.params[cells] = (new if gate is None
+                              else torch.where(gate[:, None], new, old))
+
+    def _note_guard(self, cells, has, screened):
+        """Add a round's guard counts to its groups' device counters (the
+        padding groups' to the scratch row) and return the quorum gate
+        (G,) bool, or None when the guard is off."""
+        if screened is None:
+            return None
+        gate = screened[:, 2] >= self.guard[2]
+        skips = (has & ~gate).to(torch.int32)
+        self.guard_counts.index_add_(
+            0, cells, torch.cat([screened[:, :2], skips[:, None]], dim=1))
+        return gate
 
     @staticmethod
     def _plain_aggregate(cfg, u, fresh, tau, valid, no_stale: bool):
@@ -579,9 +716,9 @@ class RoundPipeline:
         return agg
 
     def finalize(self) -> list:
-        """Write each cell's device model (and YoGi state, robust counters)
-        back to its Simulator and finalize it, and hand the graphs back
-        for the next pipeline of this structure; returns the
+        """Write each cell's device model (and YoGi state, robust and guard
+        counters) back to its Simulator and finalize it, and hand the
+        graphs back for the next pipeline of this structure; returns the
         Accountings."""
         accts = []
         for i, sim in enumerate(self.sims):
@@ -592,8 +729,61 @@ class RoundPipeline:
                     "v": self.opt_state["v"][i, :self.d].clone(),
                     "t": self.opt_state["t"][i].clone()}
             sim.robust_counts = self.robust_counts[i].clone()
+            sim.guard_counts = self.guard_counts[i].clone()
             accts.append(sim._finalize())
+        self._release()
+        return accts
+
+    def _release(self) -> None:
+        """Hand the graphs and their buffers back (``graphs.release``)."""
         if self._ws is not None:
             release(self._ws)
             self._ws = self.graphs = None
-        return accts
+
+    # ------------------------------------------------------------------
+    # Crash-safe snapshots at chunk boundaries
+    # ------------------------------------------------------------------
+
+    def snapshot(self, r_next: int) -> dict:
+        """Every cell's state as host objects, ``r_next`` the first round a
+        resume runs (``repro_torch.checkpoint.state.build_resumed_pipeline``
+        rebuilds the pipeline from it).  Read from the buffers the rounds
+        write (the graphs' static ones on the graphed route): params and
+        YoGi rows at the true D, each cell's stale-cache rows in its
+        cache order (slot ids never reach a value, a resume re-seats the
+        rows), and the device counters that reach the accounting only at
+        ``finalize``."""
+        d = self.d
+        params = self.params[:, :d].cpu().numpy()
+        opt = ({k: t.cpu().numpy() for k, t in self.opt_state.items()}
+               if self.yogi else None)
+        robust = self.robust_counts.cpu()
+        guard = self.guard_counts.cpu()
+        payload_sims = []
+        for i, sim in enumerate(self.sims):
+            slots = [f.delta for f in sim.stale_cache]
+            rows = (self.cache.rows[torch.as_tensor(
+                slots, dtype=torch.int64, device=self.device)].cpu()
+                if slots else [])
+            payload_sims.append({
+                "cfg": dataclasses.asdict(sim.cfg),
+                "state": sim.capture_state(stale_rows=rows,
+                                           robust_counts=robust[i],
+                                           guard_counts=guard[i]),
+                "flat_params": params[i],
+                "flat_opt_state": None if opt is None else {
+                    "m": opt["m"][i, :d], "v": opt["v"][i, :d],
+                    "t": opt["t"][i]},
+                "fault_plan": sim.fault_plan})
+        return {"version": 1, "kind": "pipeline", "next_round": int(r_next),
+                "done": list(self.done), "sims": payload_sims,
+                "cache_capacity": self.cache.capacity}
+
+    def checkpoint(self, r_next: int) -> None:
+        """Write ``snapshot(r_next)`` (wrapped by ``checkpoint_wrap``) to
+        ``checkpoint_path``, atomically."""
+        from repro_torch.checkpoint.state import save_snapshot
+        payload = self.snapshot(r_next)
+        if self.checkpoint_wrap is not None:
+            payload = self.checkpoint_wrap(payload)
+        save_snapshot(self.checkpoint_path, payload)

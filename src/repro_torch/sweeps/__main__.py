@@ -5,15 +5,23 @@
   PYTHONPATH=src python -m repro_torch.sweeps --list-selectors
   PYTHONPATH=src python -m repro_torch.sweeps --selector random,oort,safa
   PYTHONPATH=src python -m repro_torch.sweeps --rounds-per-dispatch 4
+  PYTHONPATH=src python -m repro_torch.sweeps --smoke --checkpoint S.pkl \
+      --crash-after 3 --crash-hard          # exits 137 after round 3
+  PYTHONPATH=src python -m repro_torch.sweeps --resume S.pkl --out R.json
 
 Expands a policy x SAA x hardware grid (or, with ``--selector``, a
 selector race under matched seeds), runs it batched, re-runs every cell
 serially to assert equal metrics, and prints the paper-style
 resource-to-accuracy table with the batched and serial wall times.
 ``--rounds-per-dispatch K`` runs the batches in K-round chunks, against
-serial runs at K = 1.  Unlike the reference it writes a JSON payload only
-when ``--out`` names a path.  The reference's sharding, checkpoint and
-telemetry flags raise, naming the ROADMAP.md item that ports them.
+serial runs at K = 1.  ``--checkpoint PATH`` writes a crash-safe sweep
+snapshot every ``--checkpoint-every`` rounds, ``--crash-after R`` crashes
+the batched run once round R is done (an exception, or with
+``--crash-hard`` a SIGKILL, exit code 137), and ``--resume PATH`` finishes
+a crashed sweep from its snapshot, bit for bit the uninterrupted sweep.
+Unlike the reference it writes a JSON payload only when ``--out`` names a
+path.  The reference's sharding and telemetry flags raise, naming the
+ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -26,15 +34,12 @@ from repro_torch.sim.engine import resolve_device
 from repro_torch.sweeps import (SweepSpec, assert_parity, run_batched,
                                 run_serial)
 from repro_torch.sweeps.report import savings_line, text_table
-from repro_torch.sweeps.runner import exact_parity, unported
+from repro_torch.sweeps.runner import exact_parity, resume_sweep, unported
 
 # flag -> (what it asks for, the ROADMAP.md queue 1 item that ports it)
 UNPORTED_FLAGS = {
     "sharded": ("sweep-axis sharding", 14),
     "participant_shards": ("participant sharding", 14),
-    "checkpoint": ("sweep checkpoints", 10),
-    "resume": ("sweep resume (checkpoints)", 10),
-    "crash_after": ("crash injection", 10),
     "telemetry_dir": ("telemetry", 12),
 }
 
@@ -82,10 +87,17 @@ def main(argv=None) -> None:
     ap.add_argument("--rounds-per-dispatch", type=int, default=1,
                     metavar="K", help="rounds a chunk of the batched run "
                     "(the serial runs stay at 1)")
-    ap.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--resume", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--crash-after", type=int, default=None,
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--checkpoint", default=None,
+                    help="write crash-safe sweep snapshots to this path")
+    ap.add_argument("--checkpoint-every", type=int, default=2,
+                    help="rounds between snapshots (with --checkpoint)")
+    ap.add_argument("--resume", default=None, metavar="CKPT",
+                    help="finish a crashed sweep from its snapshot and "
+                         "print (and with --out write) its results")
+    ap.add_argument("--crash-after", type=int, default=None, metavar="R",
+                    help="chaos: crash the batched run once round R is done")
+    ap.add_argument("--crash-hard", action="store_true",
+                    help="chaos: crash by SIGKILL instead of an exception")
     ap.add_argument("--telemetry-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -100,6 +112,19 @@ def main(argv=None) -> None:
         if args.list_aggregators:
             from repro_torch.robust.aggregators import describe_aggregators
             print(describe_aggregators())
+        return
+    if args.resume:
+        results, wall = resume_sweep(args.resume, device=args.device)
+        print(f"# resumed from {args.resume} in {wall:.2f}s "
+              f"({len(results)} cells)")
+        print(text_table(results))
+        if args.out:
+            payload = {"bench": "sweeps", "mode": "resume",
+                       "resumed_from": args.resume, "cells": len(results),
+                       "results": results.to_json_dict()}
+            pathlib.Path(args.out).write_text(json.dumps(payload, indent=2)
+                                              + "\n")
+            print(f"\n# wrote {args.out}")
         return
 
     spec = demo_spec(args.smoke)
@@ -123,7 +148,18 @@ def main(argv=None) -> None:
     print(f"# sweep: {len(cells)} cells "
           f"({' x '.join(f'{a}[{len(v)}]' for a, v in spec.axes.items())}"
           f" x seeds[{len(spec.seeds)}])")
-    results, batched_wall = run_batched(cells, device=args.device)
+    fault_plan = None
+    if args.crash_after is not None:
+        from repro_torch.faults import FaultPlan
+        fault_plan = FaultPlan(
+            n_learners=max(c.config.n_learners for c in cells),
+            rounds=max(c.config.rounds for c in cells),
+            crash_after=args.crash_after,
+            crash_mode="hard" if args.crash_hard else "soft")
+    results, batched_wall = run_batched(
+        cells, device=args.device, fault_plan=fault_plan,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every if args.checkpoint else 0)
     # the serial runs stay at K = 1: an independent ground truth
     serial, serial_wall = run_serial(
         [dataclasses.replace(c, config=dataclasses.replace(

@@ -18,6 +18,10 @@ import numpy as np
 from repro_torch.sim.metrics import SUMMARY_KEYS, Accounting, SimSummary
 from repro_torch.sweeps.grid import Cell
 
+# the summary's guard and robust counters, in the reference's order
+GUARD_KEYS = ("rejected_nonfinite", "rejected_norm", "quorum_skips")
+ROBUST_KEYS = ("robust_rejected", "robust_trimmed")
+
 
 @dataclasses.dataclass
 class CellResult:
@@ -111,16 +115,20 @@ class SweepResults:
         """Sweep-wide guard / robust-aggregation counters (chaos harness).
 
         A key is present only when some cell enables its feature (the
-        guard's counters wait for guards, ROADMAP.md queue 1 item 10; the
-        ``robust_*`` counters for a robust aggregator): a sweep with the
-        feature off reports the key absent rather than a silent 0, so "0
-        rejections" is never confused with "nothing was screened".
+        guard for ``rejected_nonfinite``, ``rejected_norm`` and
+        ``quorum_skips``, a robust aggregator for the ``robust_*``
+        counters): a sweep with the feature off reports the key absent
+        rather than a silent 0, so "0 rejections" is never confused with
+        "nothing was screened".
         """
         from repro_torch.robust.aggregators import robust_key
         out = {}
-        if any(robust_key(r.cell.config) is not None for r in self.results):
-            for k in ("robust_rejected", "robust_trimmed"):
-                out[k] = int(sum(r.summary[k] for r in self.results))
+        for keys, on in (
+                (GUARD_KEYS, lambda cfg: cfg.guard),
+                (ROBUST_KEYS, lambda cfg: robust_key(cfg) is not None)):
+            if any(on(r.cell.config) for r in self.results):
+                for k in keys:
+                    out[k] = int(sum(r.summary[k] for r in self.results))
         return out
 
     def to_json_dict(self) -> dict:

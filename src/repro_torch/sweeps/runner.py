@@ -27,9 +27,14 @@ give one matrix other bits at another batch count: ``chip_smoke.py``
 probes it at the sweep's training shapes and prints what it finds.
 
 Cells sharing a substrate key also share one ``Substrate`` build and its
-device copy of the dataset.  Sweep-axis and participant sharding (ROADMAP
-queue 1 item 14), checkpoints (item 10) and telemetry (item 12) are not
-ported: asking for them raises.
+device copy of the dataset.  A fault plan (``fault_plan``) applies to
+every cell, guarded cells screen their rows on both executors, and a fused
+sweep takes crash-safe snapshots (``checkpoint_path``,
+``checkpoint_every``: the in-flight batch's pipeline snapshot in an
+envelope with the grid and the finished cells' accountings), which
+``resume_sweep`` finishes bit for bit.  Sweep-axis and participant
+sharding (ROADMAP queue 1 item 14) and telemetry (item 12) are not ported:
+asking for them raises.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core.aggregation import (sweep_aggregate_flat,
+from repro_torch.core.aggregation import (screen_rows, sweep_aggregate_flat,
                                           sweep_bucket_pad, yogi_apply_flat)
 from repro_torch.core.staleness import RULE_ID
 from repro_torch.robust.aggregators import robust_sweep
@@ -75,10 +80,12 @@ class SweepRunner:
     GPU unless ``device`` names another (without a GPU it raises unless
     ``device="cpu"``).  ``substrate_cache`` maps ``substrate_key`` to a
     prebuilt ``Substrate`` (the tests inject the reference's initial
-    weights this way); ``fault_plan`` (attacker sets only) applies to
-    every cell.  After ``run()``, ``sims[i]`` holds cell i's finished
-    Simulator (its final ``flat_params``) and ``batch_stats`` each fused
-    batch's ``PipelineStats.as_dict()``, in batch order."""
+    weights this way); ``fault_plan`` applies to every cell;
+    ``checkpoint_path`` with ``checkpoint_every`` writes a resumable sweep
+    snapshot every ``checkpoint_every`` rounds of a fused batch.  After
+    ``run()``, ``sims[i]`` holds cell i's finished Simulator (its final
+    ``flat_params``) and ``batch_stats`` each fused batch's
+    ``PipelineStats.as_dict()``, in batch order."""
     cells: Sequence[Cell]
     device: Optional[object] = None
     substrate_cache: Optional[dict] = None
@@ -88,13 +95,12 @@ class SweepRunner:
     mesh: Optional[object] = None
     shard_participants: object = 0
     checkpoint_path: Optional[str] = None
+    checkpoint_every: int = 0
     telemetry: Optional[object] = None
 
     def __post_init__(self):
         if self.shard or self.mesh is not None or self.shard_participants:
             raise unported("sweep-axis and participant sharding", 14)
-        if self.checkpoint_path is not None:
-            raise unported("sweep checkpoints", 10)
         if self.telemetry is not None:
             raise unported("sweep telemetry", 12)
         self.device = resolve_device(self.device)
@@ -116,24 +122,46 @@ class SweepRunner:
             groups.setdefault(compat_key(c.config), []).append(i)
         return list(groups.values())
 
-    def run(self) -> SweepResults:
-        results: list = [None] * len(self.cells)
+    def run(self, completed: Optional[dict] = None) -> SweepResults:
+        """Run every batch not in ``completed`` (cell index -> finished
+        Accounting: a resumed sweep's), in order."""
+        completed = {} if completed is None else completed
         for idxs in self.batches():
+            if idxs[0] in completed:
+                continue
             sims = [Simulator(self.cells[i].config,
                               substrate=self.substrate(self.cells[i].config),
                               device=self.device, fault_plan=self.fault_plan)
                     for i in idxs]
             if sims[0].cfg.fused_rounds:
-                pipe = RoundPipeline(sims, progress=self.progress)
+                pipe = RoundPipeline(
+                    sims, progress=self.progress,
+                    checkpoint_path=self.checkpoint_path,
+                    checkpoint_every=self.checkpoint_every,
+                    checkpoint_wrap=self._ckpt_wrap(idxs, completed))
                 accts = pipe.run()
                 self.batch_stats.append(pipe.stats.as_dict())
             else:
                 accts = self._run_batch_stages(sims)
             for i, sim, acct in zip(idxs, sims, accts):
                 self.sims[i] = sim
-                results[i] = CellResult(cell=self.cells[i],
-                                        summary=acct.summary(), acct=acct)
-        return SweepResults(results)
+                completed[i] = acct
+        return SweepResults([CellResult(cell=c, summary=completed[i].summary(),
+                                        acct=completed[i])
+                             for i, c in enumerate(self.cells)])
+
+    def _ckpt_wrap(self, idxs, completed):
+        """The envelope of a batch's pipeline snapshots: the grid, the
+        cells finished before this batch (``completed``, read when the
+        snapshot is taken) and the batch's cell indices, which
+        ``resume_sweep`` reads."""
+        def wrap(pipeline_payload):
+            return {"version": 1, "kind": "sweep", "cells": list(self.cells),
+                    "completed": dict(completed), "group": list(idxs),
+                    "fault_plan": self.fault_plan,
+                    "checkpoint_every": self.checkpoint_every,
+                    "pipeline": pipeline_payload}
+        return wrap
 
     def _run_batch_stages(self, sims):
         """The per-stage batched executor (``fused_rounds=False``): the
@@ -149,6 +177,8 @@ class SweepRunner:
                           dtype=torch.float32, device=dev)
         counts_all = torch.zeros((s, 2), dtype=torch.int32, device=dev)
         robust = sims[0]._attack is not None or sims[0]._robust is not None
+        guard = ((cfg0.guard_clip, cfg0.guard_reject_mult,
+                  max(int(cfg0.quorum), 1)) if cfg0.guard else None)
         done = [False] * s
         for r in range(cfg0.rounds):
             if all(done):
@@ -177,7 +207,8 @@ class SweepRunner:
                     if len(surv):
                         lo = first[i]
                         l2s[surv] = l2_host[lo:lo + len(surv)]
-                        cell_deltas = deltas[lo:lo + len(surv)]
+                        cell_deltas = sims[i]._corrupt_deltas(
+                            r, plan, deltas[lo:lo + len(surv)])
                     t_end, fresh, stale, taus, lids = sims[i]._collect_updates(
                         r, plan, cell_deltas, pos, l2s)
                     tails[i] = (t_end, len(fresh), len(stale))
@@ -189,7 +220,7 @@ class SweepRunner:
             if groups:
                 with record_function("round.device"):
                     self._server_step(r, sims, groups, updates, params, opt,
-                                      lr, counts_all, robust)
+                                      lr, counts_all, robust, guard)
             acc = loss = None
             if sims[order[0]].eval_due(r):
                 with record_function("round.eval"):
@@ -214,18 +245,23 @@ class SweepRunner:
 
     @staticmethod
     def _server_step(r, sims, groups, updates, params, opt, lr, counts_all,
-                     robust):
+                     robust, guard=None):
         """One batched aggregation and server step over the cells
-        ``groups``, in place on ``params`` / ``opt`` / ``counts_all``."""
+        ``groups``, in place on ``params`` / ``opt`` / ``counts_all``.
+        Under the ``guard`` (clip, reject_mult, quorum) the padded operand
+        is screened once and its survivor mask is the aggregate's
+        ``valid`` (``fresh`` unmasked, as the reference's per-stage sweep
+        hands its kernel), each cell's counts go to its accounting, and a
+        cell below the quorum keeps its params and YoGi state."""
         cfg0 = sims[0].cfg
-        d = params.shape[1]
-        u, fresh, tau, valid, _ = sweep_bucket_pad(
-            [updates[i][0] for i in groups], d)
-        dev = params.device
+        d, dev = params.shape[1], params.device
         idx = (slice(None) if groups == list(range(len(sims)))
                else torch.as_tensor(groups, device=dev))
+        screened = None
+        u, fresh, tau, valid, _ = sweep_bucket_pad(
+            [updates[i][0] for i in groups], d)
+        sizes = [len(updates[i][0][0]) for i in groups]
         if robust:
-            sizes = [len(updates[i][0][0]) for i in groups]
             att = None
             if sims[0]._attack is not None:
                 flags = np.zeros(tuple(valid.shape), bool)
@@ -236,21 +272,42 @@ class SweepRunner:
                 u, fresh, tau, valid, att, sizes, attack=sims[0]._attack,
                 robust=sims[0]._robust, betas=[sims[i].cfg.beta for i in groups],
                 rule_ids=[RULE_ID[sims[i].cfg.scaling_rule] for i in groups],
-                use_kernel=cfg0.use_agg_kernel)
-            counts_all[idx] += counts
+                use_kernel=cfg0.use_agg_kernel,
+                guard=None if guard is None else guard[:2])
+            counts_all[idx] += counts[:, :2]
+            if guard is not None:
+                screened = counts[:, 2:].cpu()
         else:
+            if guard is not None:
+                u, valid, n_nf, n_out, _ = screen_rows(
+                    u, valid, clip=guard[0], reject_mult=guard[1])
+                screened = torch.stack(
+                    [n_nf, n_out, valid.sum(dim=1, dtype=torch.int32)],
+                    dim=1).cpu()
             agg, _ = sweep_aggregate_flat(
                 u, fresh, tau, valid, [sims[i].cfg.beta for i in groups],
                 rule=[sims[i].cfg.scaling_rule for i in groups],
-                use_kernel=cfg0.use_agg_kernel)
+                use_kernel=cfg0.use_agg_kernel, sizes=sizes)
+        gate = None
+        if screened is not None:
+            ok = screened[:, 2] >= guard[2]
+            for (n_nf, n_out, _), applied, i in zip(screened.tolist(),
+                                                    ok.tolist(), groups):
+                sims[i].acct.note_guard(n_nf, n_out, applied)
+            gate = ok.to(dev)
+        old = params[idx]
         if opt is not None:
             st = {k: v[idx] for k, v in opt.items()}
-            new, st = yogi_apply_flat(params[idx], agg, st)
-            params[idx] = new
-            for k, v in st.items():
+            new, st_new = yogi_apply_flat(old, agg, st)
+            for k, v in st_new.items():
+                if gate is not None:      # a quorum skip keeps the state
+                    v = torch.where(gate.view((-1,) + (1,) * (v.dim() - 1)),
+                                    v, st[k])
                 opt[k][idx] = v
         else:
-            params[idx] = params[idx] + lr[idx] * agg
+            new = old + lr[idx] * agg
+        params[idx] = new if gate is None else torch.where(gate[:, None],
+                                                           new, old)
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +332,8 @@ def run_serial(cells: Sequence[Cell], device=None, substrate_cache=None):
 
 def run_batched(cells: Sequence[Cell], device=None, shard: bool = False,
                 mesh=None, shard_participants=0, fault_plan=None,
-                checkpoint_path=None, telemetry=None, substrate_cache=None):
+                checkpoint_path=None, checkpoint_every: int = 0,
+                telemetry=None, substrate_cache=None):
     """Returns (SweepResults, wall seconds); wall includes substrate
     builds."""
     t0 = time.time()
@@ -284,13 +342,39 @@ def run_batched(cells: Sequence[Cell], device=None, shard: bool = False,
                           fault_plan=fault_plan, shard=shard, mesh=mesh,
                           shard_participants=shard_participants,
                           checkpoint_path=checkpoint_path,
+                          checkpoint_every=checkpoint_every,
                           telemetry=telemetry).run()
     return results, time.time() - t0
 
 
-def resume_sweep(path: str, progress: bool = False, telemetry=None):
-    """Resuming a sweep from a crash-safe snapshot needs checkpoints."""
-    raise unported("sweep resume (checkpoints)", 10)
+def resume_sweep(path: str, progress: bool = False, telemetry=None,
+                 device=None):
+    """Finish a sweep from its snapshot (``SweepRunner`` with
+    ``checkpoint_path``): the batches finished before the crash come back
+    from their stored accountings, the batch in flight resumes its
+    pipeline mid-run, and the batches never started run afresh, each
+    cell bit for bit the uninterrupted sweep's.  Returns (SweepResults,
+    wall seconds)."""
+    from repro_torch.checkpoint.state import (SnapshotError,
+                                              build_resumed_pipeline,
+                                              load_snapshot)
+    if telemetry is not None:
+        raise unported("sweep telemetry", 12)
+    t0 = time.time()
+    payload = load_snapshot(path)
+    if payload["kind"] != "sweep":
+        raise SnapshotError(f"{path!r} is a {payload['kind']!r} snapshot, "
+                            "not a sweep snapshot (use repro_torch."
+                            "checkpoint.resume_run)")
+    completed = dict(payload["completed"])
+    fp = payload.get("fault_plan")
+    runner = SweepRunner(payload["cells"], device=device, progress=progress,
+                         fault_plan=None if fp is None else fp.without_crash())
+    pipe = build_resumed_pipeline(payload["pipeline"], progress=progress,
+                                  device=runner.device)
+    for i, acct in zip(payload["group"], pipe.run()):
+        completed[i] = acct
+    return runner.run(completed), time.time() - t0
 
 
 # the summary fields that host decisions alone fix (selection, schedule,

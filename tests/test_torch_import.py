@@ -56,6 +56,7 @@ def test_no_source_mentions_jax_or_reference_imports():
                  "launch.serve", "serve_model", "selection.safa",
                  "selection.oort", "selection.ucb", "selection.contribution",
                  "selection.flips", "selector_zoo", "sweeps", "sweeps.grid",
+                 "checkpoint.state", "checkpoint.checkpoint", "chaos_round",
                  "sweeps.results", "sweeps.report", "sweeps.runner",
                  "sweeps.__main__"):
         assert f"repro_torch.{name}" in names
@@ -71,13 +72,11 @@ def test_simulator_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
 
 @pytest.mark.parametrize("override,item", [
     (dict(fast_path=False), 15),
-    (dict(guard=True), 10),
     (dict(telemetry=2), 12),
     (dict(shard_participants=2), 14),
     (dict(benchmark="tokens", model="transformer"), 2),
     (dict(model="transformer"), 13),
     (dict(benchmark="tokens", selector="flips"), 2),
-    (dict(fused_rounds=False, guard=True), 10),
     (dict(fused_rounds=False, telemetry=1), 12),
 ])
 def test_out_of_slice_configs_name_their_roadmap_item(override, item):
@@ -86,15 +85,27 @@ def test_out_of_slice_configs_name_their_roadmap_item(override, item):
         SimConfig(**override)
 
 
-def test_fault_plan_with_specs_names_its_roadmap_item():
-    """A fault plan's corruption, drops, replays and crashes are not ported;
-    its attacker sets are."""
+@pytest.mark.parametrize("override", [dict(guard=True),
+                                      dict(fused_rounds=False, guard=True)])
+def test_guard_configs_are_accepted_and_run(override):
+    """The guard (queue 1 item 10, ported) on both substrates: the configs
+    that raised before are accepted and run."""
+    cfg = SimConfig(n_learners=10, rounds=2, eval_every=1,
+                    dynamic_availability=False, **override)
+    s = Simulator(cfg, device="cpu").run().summary()
+    assert s["rounds"] == 2 and s["quorum_skips"] == 0
+
+
+def test_fault_plan_with_specs_runs():
+    """A fault plan's corruption, drops, replays and crash (queue 1 item
+    10, ported) run: the NaN rows of an unguarded run poison its model."""
     from repro_torch.faults import FaultPlan, FaultSpec
-    cfg = SimConfig(n_learners=10, rounds=2)
+    cfg = SimConfig(n_learners=10, rounds=2, eval_every=1,
+                    dynamic_availability=False)
     plan = FaultPlan(10, 2, specs=(FaultSpec("nan", prob=0.5),), seed=0)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1 item 10\)"):
-        Simulator(cfg, device="cpu", fault_plan=plan)
+    sim = Simulator(cfg, device="cpu", fault_plan=plan)
+    assert sim.run().summary()["rounds"] == 2
+    assert not torch.isfinite(sim.flat_params).all()
 
 
 @pytest.mark.parametrize("override,server_opt,aggregator,attack", [

@@ -28,6 +28,7 @@ Contracts:
 """
 import dataclasses
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -44,7 +45,9 @@ from repro.sweeps import compat_key as jcompat_key
 from repro.sweeps import report as jreport
 from repro.sweeps.results import CellResult as JCellResult
 from repro.sweeps.results import SweepResults as JSweepResults
+from repro_torch.checkpoint import load_snapshot
 from repro_torch.core import aggregation as tagg
+from repro_torch.faults import FaultPlan, InjectedCrash
 from repro_torch.robust import aggregators as trob
 from repro_torch.sim import SimConfig, Simulator, Substrate
 from repro_torch.sim import learner as ln
@@ -509,19 +512,65 @@ def test_cli_unported_flags_name_their_item(flag):
         cli.main(["--smoke", "--device", "cpu", *argv])
 
 
+@pytest.mark.parametrize("flag", ["checkpoint", "resume", "crash_after"])
+def test_cli_chaos_flags_run(flag, tmp_path, capsys):
+    """The checkpoint, crash and resume flags (queue 1 item 10, ported):
+    a checkpointed smoke sweep leaves a sweep snapshot; a crash after
+    round 3 raises out of the batched run; a resume finishes the crashed
+    sweep with the uninterrupted sweep's results."""
+    ckpt, out = str(tmp_path / "s.pkl"), tmp_path / "r.json"
+    smoke = ["--smoke", "--device", "cpu", "--checkpoint", ckpt]
+    if flag == "checkpoint":
+        cli.main(smoke + ["--checkpoint-every", "4"])
+        assert load_snapshot(ckpt)["kind"] == "sweep"
+        assert "per-cell metrics equal" in capsys.readouterr().out
+        return
+    with pytest.raises(InjectedCrash):
+        cli.main(smoke + ["--crash-after", "3"])
+    if flag == "resume":
+        cli.main(["--resume", ckpt, "--device", "cpu", "--out", str(out)])
+        clean, _ = run_batched(cli.demo_spec(True).expand(), device="cpu")
+        got = json.loads(out.read_text())["results"]
+        assert got == json.loads(json.dumps(clean.to_json_dict()))
+
+
 @pytest.mark.parametrize("kw, item", [
     (dict(shard=True), 14), (dict(mesh=object()), 14),
-    (dict(shard_participants=2), 14), (dict(checkpoint_path="x.pkl"), 10),
-    (dict(telemetry=object()), 12)])
+    (dict(shard_participants=2), 14), (dict(telemetry=object()), 12)])
 def test_runner_unported_options_name_their_item(kw, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue 1 item {item}\)"):
         SweepRunner([], device="cpu", **kw)
 
 
-def test_resume_names_its_item():
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 10\)"):
-        resume_sweep("snapshot.pkl")
+def test_runner_checkpoint_path_runs(tmp_path):
+    """``SweepRunner(checkpoint_path=)`` (queue 1 item 10, ported): a fused
+    batch writes its snapshot and ends as the run without one."""
+    cells = SweepSpec(axes={"saa": [False, True]},
+                      base=dict(SMALL, rounds=6)).expand()
+    ckpt = str(tmp_path / "s.pkl")
+    res = SweepRunner(cells, device="cpu", checkpoint_path=ckpt,
+                      checkpoint_every=2).run()
+    ref, _ = run_batched(cells, device="cpu")
+    assert load_snapshot(ckpt)["pipeline"]["next_round"] == 4
+    for a, b in zip(res, ref):
+        assert summaries_equal(dict(a.summary), dict(b.summary))
+
+
+def test_resume_sweep_finishes_a_crashed_sweep(tmp_path):
+    """``resume_sweep`` (queue 1 item 10, ported) finishes a sweep that
+    crashed mid-batch, each cell bit for bit the uninterrupted sweep's."""
+    cells = SweepSpec(axes={"saa": [False, True]},
+                      base=dict(SMALL, rounds=6)).expand()
+    ckpt = str(tmp_path / "s.pkl")
+    with pytest.raises(InjectedCrash):
+        run_batched(cells, device="cpu", checkpoint_path=ckpt,
+                    checkpoint_every=2, fault_plan=FaultPlan(
+                        0, 0, crash_after=2))
+    res, _ = resume_sweep(ckpt, device="cpu")
+    ref, _ = run_batched(cells, device="cpu")
+    for a, b in zip(res, ref):
+        assert summaries_equal(dict(a.summary), dict(b.summary))
 
 
 def test_runner_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
