@@ -77,7 +77,18 @@ From the repository root, with nothing built beforehand.  It
      those runs gave it (the screened case included), a soft crash after
      round 15 resumed from its
      snapshot at K = 1 and 4, and the sweep CLI's hard crash (SIGKILL) and
-     ``--resume`` in subprocesses;
+     ``--resume`` in subprocesses; then telemetry (``telemetry_paths``):
+     RELAY (kernel 1) and RELAY+YoGi (kernel 2) at the quickstart's size
+     at telemetry level 2, the round-stats lane inside the round graph,
+     bit for bit their level-0 runs, their round logs at K = 4 and eager
+     byte-equal to K = 1's; a level-1 flat twin (kernel 3) and
+     coord_median at level 2 under the race's attack (kernel 7); the
+     guarded chaos run at level 2 crashed after round 15 and resumed into
+     its telemetry directory, its round log byte-equal to the
+     uninterrupted run's; the round logs against CPU runs; the sweep CLI
+     with ``--telemetry-dir`` and a guarded sweep's ``metrics.prom``
+     against its accountings; rounds/s at levels 0, 1 and 2 in turns, the
+     lane's device time, d2h bytes a chunk and the snapshot seconds;
   5. checks the result: finite parameters of the model's width; each flat
      campaign equal to its fused twin bit for bit (records, params and
      robust counters), each eager run to its graphed one; kernels 1 and 2
@@ -327,6 +338,12 @@ CHAOS_CRASH = (15, 5)
 # the most graphs a serial campaign and a sweep batch may capture (one a
 # bucket: training rows x groups x operand rows x cache capacity)
 CAPTURE_MAX, SWEEP_CAPTURE_MAX = 24, 48
+# the telemetry phase: the lane's graph-replay shape (the main operand:
+# 13 valid rows padded to 16), the warm timings' turns a level, and its
+# crash's snapshot interval (rounds 12-15 are logged past the last one)
+LANE_SHAPE = (1, 16, MAIN_D)
+TELEMETRY_REPS = 3
+TELEMETRY_CKPT_EVERY = 6
 
 
 def fail(msg):
@@ -1564,6 +1581,23 @@ def aggregated(acct) -> int:
     return sum(1 for r in acct.records if r.n_fresh + r.n_stale > 0)
 
 
+def expected_launches(saa_ops, trim_ops, kernel, acct) -> dict:
+    """The launches a run of ``kernel`` must make: one a round with a
+    group, kernels 1-4 each on the cluster kernel, the trimmed mean on the
+    variant each round's n takes (none for ``kernel`` None)."""
+    rows = [r.n_fresh + r.n_stale for r in acct.records
+            if r.n_fresh + r.n_stale > 0]
+    if kernel is None:
+        return {}
+    want = {kernel: len(rows)}
+    if kernel in FUSED:
+        want[saa_ops.launch_key(kernel, "cluster")] = len(rows)
+    if kernel == TRIM:
+        want.update(Counter(saa_ops.launch_key(TRIM, trim_ops.variant(n))
+                            for n in rows))
+    return want
+
+
 def robust_counts(acct):
     s = acct.summary()
     return s["robust_rejected"], s["robust_trimmed"]
@@ -2138,13 +2172,7 @@ def chaos_paths(torch, launches) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got, n_grp = dict(LAUNCHES), aggregated(gpu[name])
-        want = {} if kernel is None else {kernel: n_grp}
-        if kernel in FUSED:
-            want[saa_ops.launch_key(kernel, "cluster")] = n_grp
-        if kernel == TRIM:
-            want.update(Counter(
-                saa_ops.launch_key(TRIM, trim_ops.variant(r.n_fresh + r.n_stale))
-                for r in gpu[name].records if r.n_fresh + r.n_stale > 0))
+        want = expected_launches(saa_ops, trim_ops, kernel, gpu[name])
         if (kernel is not None and n_grp == 0) or got != want:
             fail(f"chaos {name}: launches {got}, expected {want} (one per "
                  "round with a group)")
@@ -2339,6 +2367,358 @@ def chaos_paths(torch, launches) -> dict:
     return rep, ns
 
 
+def log_diff(got, want, n_test):
+    """Two round logs (event lists) compared: (the first int or host field
+    that differs, as (round, key, got, want), or None; the largest
+    relative difference of their l2 and loss columns; the largest accuracy
+    difference in test samples)."""
+    from repro_torch.telemetry.schema import LANE_INT_FIELDS
+    exact = LANE_INT_FIELDS | {"event", "cell", "sim_time", "resource_used",
+                               "resource_wasted", "unique_participants"}
+    if len(got) != len(want):
+        return ("length", len(got), len(want)), None, None
+    first, rel, acc = None, 0.0, 0.0
+    for a, b in zip(got, want):
+        if list(a) != list(b):
+            return ("keys", a["round"]), None, None
+        for k in a:
+            if k in exact:
+                if a[k] != b[k] and first is None:
+                    first = (a["round"], k, a[k], b[k])
+            elif k == "accuracy":
+                if (a[k] is None) != (b[k] is None):
+                    first = first or (a["round"], k, a[k], b[k])
+                elif a[k] is not None:
+                    acc = max(acc, abs(a[k] - b[k]) * n_test)
+            elif a[k] is not None and b[k] is not None:
+                rel = max(rel, abs(a[k] - b[k]) / max(abs(b[k]), 1e-4))
+    return first, rel, acc
+
+
+def telemetry_paths(torch, launches) -> dict:
+    """Telemetry on the card (``repro_torch.telemetry``; level 2 = the
+    round-stats lane inside the round's CUDA graph and the per-round JSONL
+    log).  Gates: (a) level-2 RELAY (kernel 1) and RELAY+YoGi (kernel 2)
+    at the quickstart's full size graphed, each bit for bit its level-0
+    run in params, records and launches; (b) each one's level-2 round log
+    at K = 4 and with its rounds dispatched eagerly byte-equal to its
+    K = 1 graphed log; (c) the chaos harness's guard=reject run at level 2
+    crashed after round 15 (snapshots every 6, so rounds 12-15 are logged
+    past the last one) and resumed into its directory, at K = 1 and 4:
+    the round log byte-equal and the in-memory round events equal to the
+    uninterrupted run's, no graph captured on resume; (d) the card's round
+    logs against CPU runs: int and host fields equal at full size (RELAY,
+    guard=reject), the l2 and loss columns within rtol 1e-3 (relative to
+    at least 1e-4) and accuracy within one test sample on small runs
+    (the small-run GPU-vs-CPU rule; the full-size float gaps are printed);
+    (e) the sweep CLI with ``--telemetry-dir`` on the ``--smoke`` grid (a
+    line a cell and recorded round, a trace that loads, guard counters
+    equal to the cells') and a guarded sweep under the chaos plan in
+    process (``metrics.prom``'s guard counters equal the accountings').
+    Also a level-1 flat twin (kernel 3, spans, no round log) and
+    coord_median at level 2 under the race's attack (kernel 7, eager;
+    its robust columns sum to its counters), each bit for bit its level-0
+    run.  Numbers: warm rounds/s of RELAY at levels 0, 1 and 2,
+    interleaved ``TELEMETRY_REPS`` times; the lane's device ms alone at
+    ``LANE_SHAPE`` and a level-2 round graph's replay beside the level-0
+    one of the same bucket; d2h bytes a chunk; the snapshot seconds from
+    the ``checkpoint`` span's histogram."""
+    import os
+    import tempfile
+    from repro_torch import chaos_round
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.staleness_agg import ops as saa_ops
+    from repro_torch.kernels.trimmed_agg import ops as trim_ops
+    from repro_torch.faults import FaultPlan, FaultSpec
+    from repro_torch.quickstart import CAMPAIGNS, COMMON
+    from repro_torch.sim import SimConfig, Simulator
+    from repro_torch.sim.pipeline import RoundPipeline, lane_norms
+    from repro_torch.sweeps import SweepRunner, SweepSpec
+    from repro_torch.telemetry import TelemetrySession
+    from repro_torch.telemetry.schema import GUARD_COUNTERS
+    common, plan = chaos_round.build(False)
+    modes = {label: extra for label, extra, _ in chaos_round.GUARD_MODES}
+    chaos_reject = dict(common, use_agg_kernel=True, **modes["guard=reject"])
+    yogi = dict(CAMPAIGNS["RELAY"], server_opt="yogi")
+    runs = {     # name -> (config, faulted, kernel)
+        "RELAY": (dict(COMMON, **CAMPAIGNS["RELAY"]), False, APPLY),
+        "RELAY+YoGi": (dict(COMMON, **yogi), False, AGG),
+        "RELAY flat": (dict(COMMON, **CAMPAIGNS["RELAY"], fused_rounds=False),
+                       False, CELL_AGG),
+        "coord_median": (dict(RACE, aggregator="coord_median"), False, TRIM),
+        "chaos guard=reject": (chaos_reject, True, APPLY),
+    }
+    rep = {"paths": {}}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    n_dirs = [0]
+
+    def run(name, level, k=1, eager=False, device="cuda", gate=True):
+        """``runs[name]`` at ``level`` (from level 1 with a session logging
+        into a directory of its own), the launches gated; returns
+        (Accounting, Simulator, stats dict or None, the round log's bytes,
+        launches, session, seconds from the pipeline's construction to the
+        run's end)."""
+        kw, faulted, kernel = runs[name]
+        n_dirs[0] += 1
+        d = os.path.join(tmp, f"run{n_dirs[0]}")
+        sim = Simulator(SimConfig(**kw, telemetry=level, rounds_per_dispatch=k),
+                        device=device, fault_plan=plan if faulted else None)
+        sess = TelemetrySession(d if level else None)
+        LAUNCHES.clear()
+        stats = None
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sim.cfg.fused_rounds:
+            pipe = RoundPipeline([sim], telemetry=sess)
+            if eager:
+                pipe.graphs, pipe.stats.graphed = None, False
+            acct, = pipe.run()
+            stats = pipe.stats.as_dict()
+        else:
+            acct = sim.run(telemetry=sess)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        sess.close()
+        got = dict(LAUNCHES)
+        if gate and device == "cuda":
+            want = expected_launches(saa_ops, trim_ops, kernel, acct)
+            if got != want or not want:
+                fail(f"telemetry {name} level {level}: launches {got}, expected "
+                     f"{want} (one per round with a group)")
+            if stats is not None and not eager:
+                graph_gate(f"telemetry {name} level {level} K={k}", stats,
+                           kernel, len(acct.records))
+            launches.update(got)
+        log = Path(d, "rounds.jsonl").read_bytes() if level else b""
+        if level >= 2 and sim.cfg.fused_rounds:
+            n_logged = log.count(b"\n")
+            if n_logged != len(acct.records) or \
+                    len(acct.round_events) != len(acct.records):
+                fail(f"telemetry {name}: {n_logged} logged rounds, "
+                     f"{len(acct.round_events)} in memory, "
+                     f"{len(acct.records)} recorded")
+        elif log or acct.round_events:
+            fail(f"telemetry {name} level {level}: a round log below level 2 "
+                 "or on the flat path")
+        return acct, sim, stats, log, got, sess, secs
+
+    # (a), (b): level 2 == level 0; K = 4 and eager logs == the K = 1 log
+    out = {}
+    for name in ("RELAY", "RELAY+YoGi"):
+        a0, s0, st0, _, got0, _, _ = run(name, 0)
+        a2, s2, st2, log2, got2, _, _ = run(name, 2)
+        if not same_run(torch, a0, s0, a2, s2) or got0 != got2:
+            fail(f"telemetry {name}: level 2 differs from level 0 (records, "
+                 f"params, launches {got2} vs {got0})")
+        if not st2["graphed"]:
+            fail(f"telemetry {name}: level 2 not graphed")
+        a4, s4, st4, log4, got4, _, _ = run(name, 2, k=CHUNK_K)
+        ae, se, _, loge, _, _, _ = run(name, 2, eager=True, gate=False)
+        if log4 != log2 or got4 != got2 or not same_run(torch, a2, s2, a4, s4):
+            fail(f"telemetry {name} K={CHUNK_K}: round log or run differs from "
+                 "K = 1's")
+        if loge != log2 or not same_run(torch, a2, s2, ae, se):
+            fail(f"telemetry {name}: the eager round log or run differs from "
+                 "the graphed one")
+        out[name] = (a2, st2, st4)
+        rep["paths"][name] = {
+            "launches": got2, "rounds": len(a2.records),
+            "log_bytes": len(log2), "d2h_bytes": st2["d2h_bytes"],
+            "chunks": st2["dispatches"]["round"],
+            "d2h_bytes_per_chunk": st2["d2h_bytes"] / st2["dispatches"]["round"],
+            f"d2h_bytes_per_chunk_K{CHUNK_K}":
+                st4["d2h_bytes"] / st4["dispatches"]["round"],
+            "graph_replays": st2["graph_replays"]}
+        print(f"telemetry {name}: level 2 graphed == level 0 bitwise (records, "
+              f"params, launches {got2}); round log {len(log2)} bytes, "
+              f"K={CHUNK_K} and eager logs byte-equal; d2h "
+              f"{rep['paths'][name]['d2h_bytes_per_chunk']:.0f} B a chunk at K = 1, "
+              f"{rep['paths'][name][f'd2h_bytes_per_chunk_K{CHUNK_K}']:.0f} at "
+              f"K = {CHUNK_K}")
+    # the level-1 flat twin (kernel 3) and coord_median at level 2 (kernel 7)
+    f0, fs0, _, _, fg0, _, _ = run("RELAY flat", 0)
+    f1, fs1, _, _, fg1, fsess, _ = run("RELAY flat", 1)
+    spans = {e["name"] for e in fsess.tracer.events}
+    if not same_run(torch, f0, fs0, f1, fs1) or fg0 != fg1 or \
+            not {"schedule", "dispatch", "fetch", "eval"} <= spans:
+        fail(f"telemetry RELAY flat level 1: differs from level 0 or spans "
+             f"{sorted(spans)} incomplete")
+    c0, cs0, _, _, cg0, _, _ = run("coord_median", 0)
+    c2, cs2, cst2, _, cg2, _, _ = run("coord_median", 2)
+    trimmed = sum(e["robust_trimmed"] for e in c2.round_events)
+    if not same_run(torch, c0, cs0, c2, cs2) or cg0 != cg2 or cst2["graphed"] \
+            or trimmed != c2.summary()["robust_trimmed"] or not trimmed:
+        fail(f"telemetry coord_median level 2: differs from level 0, graphed, or "
+             f"its robust_trimmed column sums to {trimmed}, not "
+             f"{c2.summary()['robust_trimmed']}")
+    rep["paths"]["RELAY flat level 1"] = {"launches": fg1, "spans": sorted(spans)}
+    rep["paths"]["coord_median"] = {"launches": cg2, "robust_trimmed": trimmed}
+    print(f"telemetry RELAY flat level 1 (spans {sorted(spans)}, no round log) "
+          f"and coord_median level 2 (eager, robust_trimmed column {trimmed}) "
+          f"== level 0 bitwise; launches {fg1}, {cg2}")
+    # (c) crash after round 15 (snapshots every 6) and resume, K = 1 and 4
+    rep["crash_resume"] = {}
+    snap = []
+    for k in (1, CHUNK_K):
+        cfg = SimConfig(**chaos_reject, telemetry=2, rounds_per_dispatch=k)
+        res = chaos_round.crash_resume(cfg, plan, device="cuda",
+                                       crash_after=CHAOS_CRASH[0],
+                                       checkpoint_every=TELEMETRY_CKPT_EVERY)
+        (ref, ref_sim), (got, sim) = res["ref"], res["resumed"]
+        st = res["pipeline"].stats
+        size, offset = res["truncated"]
+        clean_log, resumed_log = res["logs"]
+        if not same_run(torch, ref, ref_sim, got, sim) or \
+                clean_log != resumed_log or not clean_log or \
+                got.round_events != ref.round_events:
+            fail(f"telemetry crash K={k}: the resumed run or its round log "
+                 "differs from the uninterrupted one")
+        if not 0 < offset < size or st.graph_captures:
+            fail(f"telemetry crash K={k}: log {size} B, snapshot offset {offset}, "
+                 f"{st.graph_captures} captures on resume")
+        n_snap, snap_s = res["snapshots"]
+        snap.append((snap_s, n_snap))
+        rep["crash_resume"][f"K={k}"] = {
+            "next_round": res["next_round"], "crashed_log_bytes": size,
+            "snapshot_offset": offset, "log_bytes": len(clean_log),
+            "snapshots": n_snap, "snapshot_s_sum": snap_s}
+        print(f"telemetry crash K={k}: crashed after round {CHAOS_CRASH[0]} with "
+              f"{size - offset} B of rounds past the last snapshot; resumed at "
+              f"{res['next_round']} with 0 captures; round log byte-equal "
+              f"({len(clean_log)} B), round events == the uninterrupted run's")
+    n_snap = sum(c for _, c in snap)
+    rep["snapshot_s_mean"] = sum(s for s, _ in snap) / n_snap
+    print(f"telemetry snapshots: {n_snap} taken, "
+          f"{rep['snapshot_s_mean'] * 1e3:.3f} ms each on average (checkpoint "
+          f"span histogram; chaos guard=reject, full size) ({card_line()})")
+    # (d) the card's round logs against CPU runs
+    rep["cpu"] = {}
+    for name in ("RELAY", "chaos guard=reject"):
+        a_gpu = out[name][0] if name in out else run(name, 2)[0]
+        a_cpu, sim_cpu = run(name, 2, device="cpu", gate=False)[:2]
+        n_test = len(sim_cpu.substrate.data.y_test)
+        first, rel, acc = log_diff(a_gpu.round_events, a_cpu.round_events, n_test)
+        if first is not None:
+            fail(f"telemetry {name}: the card's round log differs from the "
+                 f"CPU's at {first}")
+        rep["cpu"][name] = {"float_max_rel": rel, "accuracy_max_samples": acc}
+        print(f"telemetry {name} (full size): round log int and host fields == "
+              f"the CPU run's; l2/loss columns max rel diff {rel:.3g}, accuracy "
+              f"max {acc:.0f} test samples (free-running, not gated)")
+    small = dict(n_learners=30, rounds=8, eval_every=4, seed=2, n_target=4,
+                 mapping="label_uniform", use_agg_kernel=True, selector="priority",
+                 saa=True, apt=True, scaling_rule="relay", telemetry=2)
+    small_plan = FaultPlan(n_learners=30, rounds=8, specs=plan.specs,
+                           seed=plan.seed)
+    for label, kw, fp in (("RELAY", {}, None),
+                          ("guard=reject", modes["guard=reject"], small_plan)):
+        sims = {dv: Simulator(SimConfig(**small, **kw), device=dv,
+                              fault_plan=fp) for dv in ("cuda", "cpu")}
+        accts = {dv: sim.run() for dv, sim in sims.items()}
+        n_test = len(sims["cpu"].substrate.data.y_test)
+        first, rel, acc = log_diff(accts["cuda"].round_events,
+                                   accts["cpu"].round_events, n_test)
+        if first is not None or rel > 1e-3 or acc > 1:
+            fail(f"telemetry small {label}: round log vs CPU: first exact "
+                 f"difference {first}, float max rel {rel}, accuracy {acc} "
+                 "test samples")
+        rep["cpu"][f"small {label}"] = {"float_max_rel": rel,
+                                        "accuracy_max_samples": acc}
+    print(f"telemetry small RELAY and guard=reject: round logs == CPU runs' "
+          f"(int fields equal, floats rel "
+          f"{max(rep['cpu'][f'small {x}']['float_max_rel'] for x in ('RELAY', 'guard=reject')):.3g}"
+          f" <= 1e-3)")
+    # (e) the sweep CLI with --telemetry-dir, and a guarded sweep in process
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    d = os.path.join(tmp, "cli")
+    out_json = os.path.join(tmp, "cli.json")
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.sweeps", "--smoke",
+                          "--telemetry-dir", d, "--out", out_json], cwd=ROOT,
+                         env=env, text=True, capture_output=True, timeout=600)
+    if cli.returncode != 0:
+        fail(f"sweep CLI --telemetry-dir failed: {cli.stderr[-2000:]}")
+    cells = json.loads(Path(out_json).read_text())["results"]["cells"]
+    lines = Path(d, "rounds.jsonl").read_text().splitlines()
+    names = Counter(json.loads(x)["cell"] for x in lines)
+    trace = json.loads(Path(d, "trace.json").read_text())["traceEvents"]
+    prom = Path(d, "metrics.prom").read_text()
+    want_guard = {k: sum(c["summary"][k[len("guard_"):]] for c in cells)
+                  for k in GUARD_COUNTERS}
+    got_guard = {k: int(re.search(rf"^{k} (\d+)$", prom, re.M).group(1))
+                 for k in GUARD_COUNTERS}
+    if names != {c["name"]: c["summary"]["rounds"] for c in cells} or \
+            not trace or got_guard != want_guard:
+        fail(f"sweep CLI --telemetry-dir: lines a cell {dict(names)}, "
+             f"{len(trace)} trace events, guard counters {got_guard} vs {want_guard}")
+    guard_cells = SweepSpec(axes={"hardware": HARDWARE[:2]},
+                            base=dict(small, **modes["guard=reject"]),
+                            seeds=(0, 1)).expand()
+    dense = FaultPlan(n_learners=30, rounds=8, seed=2, specs=(
+        FaultSpec("nan", prob=0.3), FaultSpec("scale", prob=0.2, scale=1e4)))
+    sess = TelemetrySession(os.path.join(tmp, "guarded_sweep"))
+    res = SweepRunner(guard_cells, device="cuda", fault_plan=dense,
+                      telemetry=sess).run()
+    sess.close()
+    prom = Path(tmp, "guarded_sweep", "metrics.prom").read_text()
+    got_guard = {k: int(re.search(rf"^{k} (\d+)$", prom, re.M).group(1))
+                 for k in GUARD_COUNTERS}
+    want_guard = {k: sum(r.summary[k[len("guard_"):]] for r in res)
+                  for k in GUARD_COUNTERS}
+    if got_guard != want_guard or not want_guard["guard_rejected_nonfinite"] \
+            or not want_guard["guard_rejected_norm"]:
+        fail(f"guarded sweep: metrics.prom {got_guard}, accountings {want_guard}")
+    rep["sweep_cli"] = {"cells": len(cells), "lines": len(lines),
+                        "trace_events": len(trace)}
+    rep["guarded_sweep"] = got_guard
+    print(f"telemetry sweep CLI --smoke --telemetry-dir: {len(lines)} round log "
+          f"lines for {len(cells)} cells (one a cell and recorded round), "
+          f"{len(trace)} trace events, guard counters == the cells'; guarded "
+          f"sweep of {len(guard_cells)} cells: metrics.prom guard counters "
+          f"{got_guard} == the accountings'")
+    # rounds/s at levels 0, 1 and 2, interleaved in turns (warm: each
+    # level's graphs captured by a first run)
+    timed = {level: [] for level in (0, 1, 2)}
+    for level in timed:
+        run("RELAY", level, gate=False)
+    for _ in range(TELEMETRY_REPS):
+        for level in timed:
+            res = run("RELAY", level, gate=False)
+            timed[level].append(len(res[0].records) / res[-1])
+    rep["rounds_per_s"] = {f"level {lv}": v for lv, v in timed.items()}
+    print("telemetry RELAY warm rounds/s (in turns): " + "; ".join(
+        f"level {lv} " + ", ".join(f"{x:.1f}" for x in v)
+        for lv, v in timed.items()) + f" ({card_line()})")
+    # the lane alone, and a level-2 round graph beside the level-0 one
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    u = torch.randn(LANE_SHAPE, generator=gen, device="cuda")
+    u[..., 12835:] = 0.0
+    valid = torch.arange(LANE_SHAPE[1], device="cuda")[None] < 13
+    rep["lane_alone"] = {"shape": list(LANE_SHAPE),
+                         "device_ms": graph_ms(torch, lambda: lane_norms(
+                             u, valid, 12835), 200)}
+    wss = {}
+    for level in (0, 2):
+        sim = Simulator(SimConfig(**runs["RELAY"][0], telemetry=level),
+                        device="cuda")
+        pipe = RoundPipeline([sim])
+        wss[level] = pipe._ws
+        pipe.run()
+    common_b = set(wss[0]._graphs) & set(wss[2]._graphs)
+    bucket = max(common_b, key=lambda b: (b.n, b.rows))
+    rep["round_graph"] = {"bucket": list(bucket), **{
+        f"level {lv}_ms": time_ms(torch, wss[lv]._graphs[bucket].graph.replay,
+                                  200) for lv in (0, 2)}}
+    print(f"telemetry lane: alone at {LANE_SHAPE} {rep['lane_alone']['device_ms']:.4f} "
+          f"ms graph replay; a RELAY round graph at bucket {tuple(bucket)}: "
+          f"level 0 {rep['round_graph']['level 0_ms']:.4f} ms, level 2 "
+          f"{rep['round_graph']['level 2_ms']:.4f} ms a replay ({card_line()})")
+    tmp_dir.cleanup()
+    return rep
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2474,13 +2854,7 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got, n_agg = dict(LAUNCHES), aggregated(gpu[name])
-        want = {} if kernel is None else {kernel: n_agg}
-        if kernel in FUSED:              # every server step on the cluster kernel
-            want[saa_ops.launch_key(kernel, "cluster")] = n_agg
-        if kernel == TRIM:               # each round on the variant its n takes
-            want.update(Counter(
-                saa_ops.launch_key(TRIM, trim_ops.variant(r.n_fresh + r.n_stale))
-                for r in gpu[name].records if r.n_fresh + r.n_stale > 0))
+        want = expected_launches(saa_ops, trim_ops, kernel, gpu[name])
         if n_agg == 0 or got != want:
             fail(f"{name}: launches {got}, expected {want} (one per round "
                  "that aggregated, each on the cluster kernel for kernels 1-4 "
@@ -2782,6 +3156,9 @@ def main():
           f"{pad_ns}): {sum(checks.n.values()) - before} more checks, "
           f"{checks.cases['screened']} screened in all")
     lap("chaos harness")
+    # --- telemetry: the round-stats lane in the round graph, the round log
+    report["telemetry"] = telemetry_paths(torch, launches)
+    lap("telemetry")
     # --- the sweep paths: lockstep batches of S cells --------------------
     report["sweeps"], profile_sweeps = sweep_paths(torch, gen, checks, launches)
     lap("sweep paths")

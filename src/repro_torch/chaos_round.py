@@ -14,16 +14,17 @@ difference comes from the guard mode alone:
 
 A robustness phase arms a coordinated ``collude_signflip`` attack and races
 plain ``saa`` against ``coord_median``: the defense must win.  A last phase
-crashes the guarded run after round 3 (a soft crash at a snapshot
-boundary) and resumes it from its snapshot: the resumed run's summary and
-final params must equal the uninterrupted run's bit for bit.  (The
-reference also holds the crashed run's telemetry round log to the
-uninterrupted one's bytes; that check waits for telemetry, ROADMAP.md
-queue 1 item 12.)
+runs the guarded run at telemetry level 2, crashes it after round 3 (a
+soft crash at a snapshot boundary) and resumes it from its snapshot into
+the crashed run's telemetry directory: the resumed run's summary and final
+params must equal the uninterrupted run's bit for bit, and its
+``rounds.jsonl`` round log the uninterrupted run's byte for byte.
 
 Exits non-zero if a guarded run ends non-finite, rejects nothing or lands
 farther than ``--tolerance`` from clean, if the defense loses, or if the
-resume diverges.
+resume diverges.  ``--telemetry-dir DIR`` runs the four guard modes at
+level 2, each logging into ``DIR/<mode>`` (round by round comparable with
+the reference's logs of the same scenarios).
 
   PYTHONPATH=src python -m repro_torch.chaos_round --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.chaos_round     # the GPU, full size
@@ -33,6 +34,7 @@ from __future__ import annotations
 import argparse
 import math
 import os
+import pathlib
 import sys
 import tempfile
 
@@ -42,6 +44,7 @@ from repro_torch.checkpoint import build_resumed_pipeline, load_snapshot
 from repro_torch.faults import FaultPlan, FaultSpec, InjectedCrash
 from repro_torch.sim import SimConfig, Simulator
 from repro_torch.sweeps.runner import summaries_equal
+from repro_torch.telemetry import TelemetrySession
 
 
 def build(smoke: bool):
@@ -93,27 +96,49 @@ def crash_resume(cfg, plan, *, device=None, crash_after: int = 3,
     """The uninterrupted run of ``cfg`` under ``plan`` (crash disarmed),
     then the same run crashed (soft) after round ``crash_after`` with a
     snapshot every ``checkpoint_every`` rounds, then its resume from the
-    last snapshot.  Returns {"ref", "resumed": (Accounting, Simulator),
+    last snapshot, each with a telemetry session: the uninterrupted run's
+    logs into one directory, the crashed run's and then its resume's into
+    another.  Returns {"ref", "resumed": (Accounting, Simulator),
     "next_round": the resume's first round, "pipeline": the resumed
-    RoundPipeline (its ``stats``)}."""
-    ref_sim = Simulator(cfg, device=device, fault_plan=plan.without_crash())
-    ref = ref_sim.run()
+    RoundPipeline (its ``stats``), "logs": the two ``rounds.jsonl``
+    files' bytes (uninterrupted, crashed and resumed), "truncated": the
+    crashed run's log size and the snapshot's offset, to which the resume
+    truncated it, "snapshots": the crashed run's snapshot count and their
+    seconds in all (its ``checkpoint`` span histogram)}."""
     crash = FaultPlan(n_learners=plan.n_learners, rounds=plan.rounds,
                       specs=plan.specs, seed=plan.seed,
                       crash_after=crash_after, crash_mode="soft")
     with tempfile.TemporaryDirectory() as tmp:
+        dirs = [os.path.join(tmp, "clean"), os.path.join(tmp, "crashed")]
         ckpt = os.path.join(tmp, "run.pkl")
+        ref_sim = Simulator(cfg, device=device,
+                            fault_plan=plan.without_crash())
+        ref_sess = TelemetrySession(dirs[0])
+        ref = ref_sim.run(telemetry=ref_sess)
+        ref_sess.close()
+        crash_sess = TelemetrySession(dirs[1])
         try:
             Simulator(cfg, device=device, fault_plan=crash).run(
-                checkpoint_path=ckpt, checkpoint_every=checkpoint_every)
+                checkpoint_path=ckpt, checkpoint_every=checkpoint_every,
+                telemetry=crash_sess)
             raise RuntimeError("the scheduled crash never fired")
         except InjectedCrash:
             pass
+        finally:
+            crash_sess.close()
+        snaps = crash_sess.registry.histogram("span_seconds_checkpoint")
         payload = load_snapshot(ckpt)
-    pipe = build_resumed_pipeline(payload, device=device)
-    acct = pipe.run()[0]
+        truncated = (os.path.getsize(os.path.join(dirs[1], "rounds.jsonl")),
+                     payload["telemetry"]["rounds_offset"])
+        sess = TelemetrySession(dirs[1])     # the crashed run's directory
+        pipe = build_resumed_pipeline(payload, device=device, telemetry=sess)
+        acct = pipe.run()[0]
+        sess.close()
+        logs = [pathlib.Path(d, "rounds.jsonl").read_bytes() for d in dirs]
     return {"ref": (ref, ref_sim), "resumed": (acct, pipe.sims[0]),
-            "next_round": payload["next_round"], "pipeline": pipe}
+            "next_round": payload["next_round"], "pipeline": pipe,
+            "logs": logs, "truncated": truncated,
+            "snapshots": (snaps.count, snaps.sum)}
 
 
 def same_bits(a, b) -> bool:
@@ -129,6 +154,9 @@ def main(argv=None) -> int:
                     help="torch device (default: the GPU, required)")
     ap.add_argument("--tolerance", type=float, default=0.15,
                     help="max |guarded - clean| final-accuracy gap")
+    ap.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                    help="run the guard modes at telemetry level 2, each "
+                         "logging into DIR/<mode>")
     args = ap.parse_args(argv)
 
     common, plan = build(args.smoke)
@@ -138,9 +166,16 @@ def main(argv=None) -> int:
     runs = {}
     for i, (label, extra, faulted) in enumerate(GUARD_MODES):
         print(f"\n=== {i + 1}/{len(GUARD_MODES)} {label} ===")
+        sess = None
+        if args.telemetry_dir:
+            extra = dict(extra, telemetry=2)
+            sess = TelemetrySession(os.path.join(args.telemetry_dir, label))
         runs[label] = Simulator(
             SimConfig(**common, **extra), device=args.device,
-            fault_plan=plan if faulted else None).run().summary()
+            fault_plan=plan if faulted else None).run(
+                telemetry=sess).summary()
+        if sess is not None:
+            sess.close()
 
     print("\n--- outcome ---")
     print(f"{'':20s}{'accuracy':>10s}{'rej_nonfin':>12s}{'rej_norm':>10s}"
@@ -182,8 +217,9 @@ def main(argv=None) -> int:
         return 1
 
     print(f"\n=== {len(GUARD_MODES) + 2}/{len(GUARD_MODES) + 2} "
-          "crash mid-run, resume, compare ===")
-    cfg = SimConfig(guard=True, guard_reject_mult=5.0, quorum=1, **common)
+          "crash mid-run, resume, compare round logs ===")
+    cfg = SimConfig(guard=True, guard_reject_mult=5.0, quorum=1, telemetry=2,
+                    **common)
     out = crash_resume(cfg, plan, device=args.device)
     (ref, ref_sim), (got, sim) = out["ref"], out["resumed"]
     if not summaries_equal(got.summary(), ref.summary()) or \
@@ -191,8 +227,15 @@ def main(argv=None) -> int:
         print("FAIL: the resumed run diverged from the uninterrupted one",
               file=sys.stderr)
         return 1
+    clean_log, resumed_log = out["logs"]
+    if clean_log != resumed_log or not clean_log or \
+            got.round_events != ref.round_events:
+        print("FAIL: the resumed round log does not continue the crashed "
+              "run's byte for byte", file=sys.stderr)
+        return 1
     print(f"resumed at round {out['next_round']}: summary and params bit "
-          "for bit the uninterrupted run's")
+          "for bit the uninterrupted run's; round logs byte-equal "
+          f"({len(clean_log.splitlines())} events, {len(clean_log)} bytes)")
     print("OK")
     return 0
 

@@ -11,7 +11,10 @@ The contract: snapshots come only at round boundaries (the per-stage flat
 path) or chunk boundaries (the fused pipeline), so a resumed run walks the
 decisions and the chunks the uninterrupted run walks:
 run(2R) == run(R) -> crash -> resume(R), bit for bit, at any
-``rounds_per_dispatch``.
+``rounds_per_dispatch``.  A telemetry session resumed into the crashed
+run's directory joins the contract: its round log (``rounds.jsonl``) is
+truncated to the snapshot's byte offset and the resumed rounds re-emit the
+rest, byte for byte the uninterrupted run's log.
 
 A snapshot carries its fault plan, restored without its crash
 (``FaultPlan.without_crash``): the corruption, drops, replays and attacks
@@ -123,22 +126,28 @@ def _restore_sim(ps: dict, substrate_cache: Optional[dict] = None,
 
 def build_resumed_pipeline(payload: dict, progress: bool = False, *,
                            device=None, checkpoint_path: Optional[str] = None,
-                           checkpoint_every: int = 0, checkpoint_wrap=None):
+                           checkpoint_every: int = 0, checkpoint_wrap=None,
+                           telemetry=None):
     """A RoundPipeline rebuilt mid-run from a ``kind == "pipeline"``
     snapshot.  Its params, YoGi state and counters come from the restored
     Simulators (and fill an idle graph workspace's buffers, as any new
     pipeline's do, before the first replay); the cache takes the
     snapshot's capacity, so the rounds reuse the graphs of that capacity,
     and each stale row goes back into a slot in its saved order (slot ids
-    never reach a value)."""
+    never reach a value).  A ``telemetry`` session logging into the
+    crashed run's directory is truncated back to the snapshot's round-log
+    offset first; the cells keep their labels."""
     from repro_torch.sim.pipeline import RoundPipeline
     sub_cache: dict = {}
     sims = [_restore_sim(ps, sub_cache, device) for ps in payload["sims"]]
+    if telemetry is not None:
+        telemetry.restore(payload.get("telemetry"))
     pipe = RoundPipeline(sims, progress=progress,
                          checkpoint_path=checkpoint_path,
                          checkpoint_every=checkpoint_every,
                          checkpoint_wrap=checkpoint_wrap,
-                         start_round=int(payload["next_round"]))
+                         start_round=int(payload["next_round"]),
+                         telemetry=telemetry, labels=payload.get("labels"))
     pipe.done = list(payload["done"])
     cache, capacity = pipe.cache, pipe.cache.capacity
     entries = [f for sim in sims for f in sim.stale_cache]
@@ -155,20 +164,23 @@ def build_resumed_pipeline(payload: dict, progress: bool = False, *,
 
 def resume_run(path: str, progress: bool = False, *, device=None,
                checkpoint_path: Optional[str] = None,
-               checkpoint_every: int = 0):
+               checkpoint_every: int = 0, telemetry=None):
     """Resume a run from its snapshot on ``device`` (the GPU unless
-    named).  Returns the finalized Accounting (a list of them for a
-    pipeline of several cells), bit for bit the uninterrupted run's."""
+    named), with its spans and round log in ``telemetry``.  Returns the
+    finalized Accounting (a list of them for a pipeline of several
+    cells), bit for bit the uninterrupted run's."""
     payload = load_snapshot(path)
     if payload["kind"] == "engine":
         sim = _restore_sim(payload["sim"], device=device)
         return sim._run_loop(int(payload["next_round"]), progress,
-                             checkpoint_path, checkpoint_every)
+                             checkpoint_path, checkpoint_every,
+                             telemetry=telemetry)
     if payload["kind"] == "pipeline":
         pipe = build_resumed_pipeline(payload, progress=progress,
                                       device=device,
                                       checkpoint_path=checkpoint_path,
-                                      checkpoint_every=checkpoint_every)
+                                      checkpoint_every=checkpoint_every,
+                                      telemetry=telemetry)
         accts = pipe.run()
         return accts[0] if len(accts) == 1 else accts
     raise SnapshotError(f"{path!r}: unknown snapshot kind "

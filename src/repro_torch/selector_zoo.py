@@ -11,15 +11,21 @@ two must agree: bit for bit on the CPU, in every host-decided summary field
 on the GPU (``repro_torch.sweeps.runner.exact_parity``).  They run on the
 GPU unless ``--device`` names another, with the SAA server step through
 the CUDA kernels (``use_agg_kernel=True``, as ``repro_torch.quickstart``
-runs it).  The reference's ``--telemetry-dir`` waits for telemetry
-(ROADMAP.md queue 1 item 12).
+runs it).  ``--telemetry-dir DIR`` runs the batched cells at telemetry
+level 2 and exports the run there (``rounds.jsonl``, ``events.jsonl``,
+``trace.json``, ``metrics.prom``); the serial runs stay at level 0.  The
+reference also renders the zoo's figures from that directory; the port's
+figures wait for ROADMAP.md queue 1 item 15.
 
   PYTHONPATH=src python -m repro_torch.selector_zoo [--smoke]
   PYTHONPATH=src python -m repro_torch.selector_zoo --selectors random,oort,safa
+  PYTHONPATH=src python -m repro_torch.selector_zoo --smoke --device cpu \
+      --telemetry-dir T
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -62,11 +68,16 @@ def sweep_cells(cells) -> list:
             for name, sel, seed, cfg in cells]
 
 
-def run_batched(cells, device=None):
-    """The cells as lockstep sweep batches; returns (summaries, wall
+def run_batched(cells, device=None, telemetry=None):
+    """The cells as lockstep sweep batches, at telemetry level 2 into the
+    session ``telemetry`` when one is given; returns (summaries, wall
     seconds)."""
     from repro_torch.sweeps import run_batched as run
-    results, wall = run(sweep_cells(cells), device=device)
+    cells = sweep_cells(cells)
+    if telemetry is not None:
+        cells = [dataclasses.replace(c, config=dataclasses.replace(
+            c.config, telemetry=2)) for c in cells]
+    results, wall = run(cells, device=device, telemetry=telemetry)
     return [dict(r.summary) for r in results], wall
 
 
@@ -124,6 +135,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", default="0", help="comma list of shared seeds")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU, required)")
+    ap.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                    help="run the batched cells at telemetry level 2 and "
+                         "export the run's timeline there")
     args = ap.parse_args(argv)
 
     selectors = args.selectors.split(",")
@@ -136,7 +150,17 @@ def main(argv=None) -> int:
     cells = zoo_cells(selectors, args.smoke, seeds)
     print(f"# zoo race: {len(selectors)} selectors x {len(seeds)} shared "
           f"seed(s) = {len(cells)} cells, batched and serial")
-    batched, wall_b = run_batched(cells, device=args.device)
+    telemetry = None
+    if args.telemetry_dir:
+        from repro_torch.telemetry import TelemetrySession
+        telemetry = TelemetrySession(args.telemetry_dir)
+    try:
+        batched, wall_b = run_batched(cells, device=args.device,
+                                      telemetry=telemetry)
+    finally:
+        if telemetry is not None:
+            telemetry.close()
+            print(f"# telemetry exported to {args.telemetry_dir}")
     summaries, wall = run_serial(cells, device=args.device)
     assert_batched_equals_serial(batched, summaries, device=args.device)
     print(f"# batched {wall_b:.2f}s vs serial {wall:.2f}s; batched == "

@@ -59,6 +59,7 @@ from repro_torch.sim import learner as ln
 from repro_torch.sim import partition as part
 from repro_torch.sim import traces as tr
 from repro_torch.sim.metrics import Accounting, RoundRecord
+from repro_torch.telemetry import TelemetrySession
 
 HOUR = 3600.0
 
@@ -113,7 +114,9 @@ class SimConfig:
     guard_clip: Optional[float] = None
     guard_reject_mult: Optional[float] = None
     quorum: int = 1
-    telemetry: int = 0
+    telemetry: int = 0                # 0 off, 1 host spans + the metrics
+                                      # registry, 2 also the round-stats
+                                      # lane and the per-round event log
     model: str = "mlp"
     model_params: tuple = ()
 
@@ -143,7 +146,6 @@ class SimConfig:
 # ports it)
 _UNPORTED = (
     (lambda c: not c.fast_path, "the legacy pytree engine (fast_path=False)", 15),
-    (lambda c: c.telemetry != 0, "telemetry", 12),
     (lambda c: bool(c.shard_participants), "participant sharding", 14),
     (lambda c: c.benchmark in part.TOKEN_BENCHMARKS, "token benchmarks", 2),
     (lambda c: c.model not in MODEL_TABLE, "learner models other than mlp", 13),
@@ -812,15 +814,20 @@ class Simulator:
             return None
         return self.fault_plan.attack_flags(r, lids)
 
-    def _finalize(self) -> Accounting:
+    def _finalize(self, telemetry=None) -> Accounting:
+        """The run's end: in-flight work charged as wasted, and the device
+        counters noted through ``telemetry`` (the session's registry and
+        the accounting; a directory-less session when None)."""
+        if telemetry is None:
+            telemetry = TelemetrySession()
         # updates still in flight at the end of training are wasted work
         for f in self.stale_cache:
             self.acct.mark_wasted(f.duration)
         if self._robust is not None:       # the run's one read of the counts
-            self.acct.note_robust(*self.robust_counts.tolist())
+            telemetry.note_robust(self.acct, *self.robust_counts.tolist())
         if self.cfg.guard:                 # the fused pipeline's counters
             n_nf, n_out, skips = self.guard_counts.tolist()
-            self.acct.note_guard(n_nf, n_out, skips=skips)
+            telemetry.note_guard(self.acct, n_nf, n_out, skips=skips)
         self.params = unflatten_update(self.flat_params, self._flat_spec)
         return self.acct
 
@@ -883,58 +890,76 @@ class Simulator:
 
     def run(self, progress: bool = False, *,
             checkpoint_path: Optional[str] = None,
-            checkpoint_every: int = 0) -> Accounting:
+            checkpoint_every: int = 0, telemetry=None) -> Accounting:
         """Run every round; with ``checkpoint_path`` and
         ``checkpoint_every``, a snapshot every ``checkpoint_every`` rounds
-        (the fused pipeline: at the first chunk boundary past each)."""
+        (the fused pipeline: at the first chunk boundary past each).
+        ``telemetry``: the run's ``TelemetrySession`` (spans, registry and,
+        on the fused pipeline at level 2, the round log)."""
         if self.cfg.fused_rounds:
             from repro_torch.sim.pipeline import RoundPipeline
             return RoundPipeline([self], progress=progress,
                                  checkpoint_path=checkpoint_path,
-                                 checkpoint_every=checkpoint_every).run()[0]
+                                 checkpoint_every=checkpoint_every,
+                                 telemetry=telemetry).run()[0]
         self._t_now = 0.0
-        return self._run_loop(0, progress, checkpoint_path, checkpoint_every)
+        return self._run_loop(0, progress, checkpoint_path, checkpoint_every,
+                              telemetry=telemetry)
 
     def _run_loop(self, start_round: int, progress: bool,
                   checkpoint_path: Optional[str] = None,
-                  checkpoint_every: int = 0) -> Accounting:
+                  checkpoint_every: int = 0, telemetry=None) -> Accounting:
         """The per-stage flat round loop from ``start_round`` (a restored
         Simulator resumes here without resetting its clock), with the
-        snapshot and crash hooks after each round."""
+        snapshot and crash hooks after each round.  Its stages are
+        ``telemetry``'s spans (no lane, no round log on this route, as in
+        the reference)."""
+        if telemetry is None:
+            telemetry = TelemetrySession()
         fp, rounds = self.fault_plan, self.cfg.rounds
         for r in range(start_round, rounds):
-            if self._flat_round(r, progress) is not None and \
+            if self._flat_round(r, progress, telemetry) is not None and \
                     self._target_reached():
                 self.acct.stopped_early = True
                 break
             if checkpoint_path and checkpoint_every and \
                     (r + 1) % checkpoint_every == 0 and r + 1 < rounds:
                 from repro_torch.checkpoint.state import save_engine_snapshot
-                save_engine_snapshot(checkpoint_path, self, r + 1)
+                with telemetry.span("checkpoint", round=r + 1):
+                    save_engine_snapshot(checkpoint_path, self, r + 1)
             if fp is not None and fp.crash_due(r):
+                telemetry.event("crash", round=r, mode=fp.crash_mode)
+                telemetry.flush()
                 fp.trigger_crash(r)
-        return self._finalize()
+        return self._finalize(telemetry)
 
-    def _flat_round(self, r: int, progress: bool):
+    def _flat_round(self, r: int, progress: bool, telemetry=None):
         """One round of the flat path; returns its RoundRecord, or None
-        when the round was skipped.  The profiler spans carry the fused
-        pipeline's names: host stages, device work, bookkeeping + eval."""
-        with record_function("round.schedule"):
+        when the round was skipped.  The telemetry spans are the
+        reference's (schedule, dispatch, fetch, eval); the profiler ranges
+        carry the fused pipeline's names: host stages, device work,
+        bookkeeping + eval."""
+        if telemetry is None:
+            telemetry = TelemetrySession()
+        with telemetry.span("schedule", round=r), \
+                record_function("round.schedule"):
             plan = self._begin_round(r)
         if plan is None:
             return None
-        with record_function("round.device"):
+        with telemetry.span("dispatch", round=r), \
+                record_function("round.device"):
             deltas, pos, l2s = self._train(plan)
             deltas = self._corrupt_deltas(r, plan, deltas)
-        with record_function("round.schedule"):
-            t_end, fresh, stale, taus, lids = self._collect_updates(
-                r, plan, deltas, pos, l2s)
-        if fresh or stale:
-            with record_function("round.device"):
-                agg = self._aggregate(r, lids, fresh, stale, taus)
-                if agg is not None:
-                    self._apply_update(agg)
-        with record_function("round.eval"):
+        with telemetry.span("fetch", round=r):
+            with record_function("round.schedule"):
+                t_end, fresh, stale, taus, lids = self._collect_updates(
+                    r, plan, deltas, pos, l2s)
+            if fresh or stale:
+                with record_function("round.device"):
+                    agg = self._aggregate(r, lids, fresh, stale, taus)
+                    if agg is not None:
+                        self._apply_update(agg)
+        with telemetry.span("eval", round=r), record_function("round.eval"):
             return self._record_round(r, plan.t_now, t_end, len(plan.chosen),
                                       len(fresh), len(stale),
                                       progress=progress)

@@ -61,6 +61,11 @@ class Accounting:
     quorum_skips: int = 0         # rounds where the apply was quorum-skipped
     robust_rejected: int = 0      # robust aggregator: rows rejected
     robust_trimmed: int = 0       # robust aggregator: rows trimmed/clipped
+    round_events: List[dict] = dataclasses.field(default_factory=list)
+    # ^ the telemetry round log (SimConfig.telemetry >= 2): one event a
+    #   recorded round, keys ``repro_torch.telemetry.schema
+    #   .ROUND_EVENT_KEYS``.  Here, snapshots carry it, so a resumed run's
+    #   in-memory log continues the crashed one's.
 
     def note_guard(self, nonfinite: int, norm: int, applied: bool = True,
                    skips: int = 0):

@@ -88,6 +88,18 @@ its feedback (utility 0) in the host half.
 A cell whose evaluation reaches its ``target_accuracy`` leaves the live
 set: no host stage, no rows, no group, no evaluation.
 
+Every pipeline has a ``TelemetrySession`` (``repro_torch.telemetry``): its
+registry holds the ``PipelineStats`` counters, and its spans time the
+chunk's stages (``schema.SPAN_NAMES``).  At ``SimConfig.telemetry >= 2``
+each round's device work also writes the round-stats lane of its groups
+(``schema.LANE_FIELDS``: the host fields, packed into the index block as
+fp32 bits; the operand's l2 statistics before the screen; the guard and
+robust counts) into its slot of the chunk's (K, G, 16) lane buffer, inside
+the round's graph on the card.  After the chunk (and its evaluation) the
+buffer is copied to the host once and each live cell's round becomes one
+event of the session's round log, which snapshots carry by byte offset.
+The lane only reads the operand: level 2 moves no bit of a run.
+
 The params rows, the cache rows and the YoGi state are kept ``d_pad`` wide
 under the SAA kernels (D rounded up to their 2048-column block); the pad
 columns stay exact zeros because the deltas are zero-padded where they are
@@ -111,8 +123,9 @@ from repro_torch.core.aggregation import (bucket_block, flat_dim,
                                           yogi_apply_flat, yogi_init_flat)
 from repro_torch.core.stale_cache import DeviceStaleCache
 from repro_torch.core.staleness import RULE_ID
-from repro_torch.faults import InjectedCrash, attack_key
+from repro_torch.faults import InjectedCrash, attack_key, apply_attack
 from repro_torch.kernels.staleness_agg import ops as saa_ops
+from repro_torch.kernels.staleness_agg.ref import row_order_sum
 from repro_torch.learners import model_key
 from repro_torch.robust import robust_key
 from repro_torch.robust.aggregators import robust_sweep
@@ -121,6 +134,11 @@ from repro_torch.sim.engine import (SharedData, _InFlight, agg_lids,
                                    pack_rows, train_rows)
 from repro_torch.sim.graphs import (Bucket, RoundGraphs, acquire, release,
                                    upload)
+from repro_torch.telemetry import TelemetrySession
+from repro_torch.telemetry.registry import CounterView, MetricsRegistry
+from repro_torch.telemetry.schema import (DISPATCH_KINDS, GUARD_COUNTERS,
+                                          LANE_WIDTH, N_LANE_HOST,
+                                          PIPELINE_COUNTERS)
 
 G_BLOCK = 64      # aggregation groups a round under the SAA kernels
 N_BLOCK = 8       # operand rows a group under the SAA kernels
@@ -141,27 +159,69 @@ def pipeline_key(cfg) -> tuple:
             cfg.telemetry, model_key(cfg))
 
 
-@dataclasses.dataclass
+def _registry_counter(name: str) -> property:
+    """A ``PipelineStats`` attribute stored in its registry's counter
+    ``pipeline_<name>``."""
+    return property(
+        lambda s: s.registry.counter("pipeline_" + name).value,
+        lambda s, v: setattr(s.registry.counter("pipeline_" + name),
+                             "value", v))
+
+
 class PipelineStats:
-    """Dispatch, transfer and graph counters of a pipeline run (the
-    reference's ``PipelineStats`` counters; its telemetry registry is not
-    ported).  ``graph_capture_s``: host seconds in warm-ups and captures."""
-    rounds: int = 0
-    dispatches: Counter = dataclasses.field(default_factory=Counter)
-    rounds_per_dispatch: int = 1
-    feedback_fetches: int = 0
-    h2d_bytes: int = 0
-    graphed: bool = False
-    graph_captures: int = 0
-    graph_replays: int = 0
-    graph_capture_s: float = 0.0
-    warmup_launches: Counter = dataclasses.field(default_factory=Counter)
+    """Dispatch, transfer, guard and graph counters of a pipeline run (the
+    reference's ``PipelineStats``): a view over a telemetry
+    ``MetricsRegistry``, the one storage of every counter, so
+    ``as_dict()``, the Prometheus snapshot and the cells' guard accounting
+    cannot disagree.  ``dispatches`` and ``guard`` are dict-like
+    ``CounterView``s.  When pipelines share one session (a sweep given a
+    ``TelemetrySession``), the registry's counters run on across batches
+    and ``as_dict()`` holds the totals so far.  The graph counters are the
+    pipeline's own: ``graphed``, ``graph_captures``, ``graph_replays``,
+    ``graph_capture_s`` (host seconds in warm-ups and captures) and
+    ``warmup_launches``.  ``cross_shard_landings`` stays 0: the port runs
+    unsharded."""
+
+    GUARD_KEYS = tuple(k[len("guard_"):] for k in GUARD_COUNTERS)
+
+    rounds = _registry_counter("rounds")
+    h2d_bytes = _registry_counter("h2d_bytes")
+    d2h_bytes = _registry_counter("d2h_bytes")
+    init_h2d_bytes = _registry_counter("init_h2d_bytes")
+    cross_shard_landings = _registry_counter("cross_shard_landings")
+    feedback_fetches = _registry_counter("feedback_fetches")
+
+    def __init__(self, registry: MetricsRegistry = None,
+                 rounds_per_dispatch: int = 1, graphed: bool = False):
+        self.registry = (registry if registry is not None
+                         else MetricsRegistry())
+        for name in PIPELINE_COUNTERS:
+            self.registry.counter(name)
+        self.dispatches = CounterView(self.registry, "pipeline_dispatches_",
+                                      DISPATCH_KINDS)
+        self.guard = CounterView(self.registry, "guard_", self.GUARD_KEYS)
+        self.rounds_per_dispatch = rounds_per_dispatch
+        self.graphed = graphed
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self.graph_capture_s = 0.0
+        self.warmup_launches = Counter()
 
     def as_dict(self) -> dict:
-        out = dataclasses.asdict(self)
-        out["dispatches"] = dict(self.dispatches)
-        out["warmup_launches"] = dict(self.warmup_launches)
-        return out
+        return {"rounds": self.rounds,
+                "dispatches": dict(self.dispatches),
+                "rounds_per_dispatch": self.rounds_per_dispatch,
+                "feedback_fetches": self.feedback_fetches,
+                "h2d_bytes": self.h2d_bytes,
+                "d2h_bytes": self.d2h_bytes,
+                "init_h2d_bytes": self.init_h2d_bytes,
+                "cross_shard_landings": self.cross_shard_landings,
+                "guard": dict(self.guard),
+                "graphed": self.graphed,
+                "graph_captures": self.graph_captures,
+                "graph_replays": self.graph_replays,
+                "graph_capture_s": self.graph_capture_s,
+                "warmup_launches": dict(self.warmup_launches)}
 
 
 @dataclasses.dataclass
@@ -174,6 +234,8 @@ class RoundWork:
     plans: dict
     scheds: dict
     recs: dict
+    occ: dict = None     # cell -> its stale-cache entries after scheduling
+    pos: int = 0         # its position in the chunk (its lane slot)
     first: dict = None   # cell -> its survivors' first packed row
     n_rows: int = 0      # trained rows (before padding)
     groups: list = None  # cells that aggregate, in batch order
@@ -196,6 +258,27 @@ def _quarantine_frees(order, scheds) -> list:
     return out
 
 
+def lane_norms(u, valid, d: int) -> torch.Tensor:
+    """The lane's device statistics of a (G, n, D) operand before the
+    screen (``LANE_FIELDS`` 6-9): l2 min, mean and max over each group's
+    finite valid rows (0 when it has none), from the leading ``d`` (true)
+    columns, and the count of non-finite valid rows; (G, 4) fp32.  The
+    mean sums the norms in row order, so padding rows move no bit."""
+    u_t = u[..., :d] if u.shape[-1] != d else u
+    finite = torch.isfinite(u_t).all(dim=-1)
+    norms = torch.sqrt((u_t * u_t).sum(dim=-1))
+    ok = valid & finite
+    cnt = ok.sum(dim=1)
+    l2_min = torch.where(ok, norms, torch.inf).amin(dim=1)
+    l2_max = torch.where(ok, norms, -torch.inf).amax(dim=1)
+    l2_sum = row_order_sum(torch.where(ok, norms, 0.0))[:, 0]
+    l2_mean = l2_sum / torch.clamp(cnt, min=1).to(torch.float32)
+    stats = torch.stack([l2_min, l2_mean, l2_max], dim=1)
+    return torch.cat([torch.where((cnt > 0)[:, None], stats, 0.0),
+                      (valid & ~finite).sum(dim=1)[:, None].to(
+                          torch.float32)], dim=1)
+
+
 def _fp32_bits(x) -> np.ndarray:
     """fp32 values as int32 bit patterns (the int64 block carries them)."""
     return np.asarray(x, np.float32).view(np.int32)
@@ -204,7 +287,8 @@ def _fp32_bits(x) -> np.ndarray:
 class RoundPipeline:
     def __init__(self, sims, progress: bool = False, *,
                  checkpoint_path=None, checkpoint_every: int = 0,
-                 checkpoint_wrap=None, start_round: int = 0):
+                 checkpoint_wrap=None, start_round: int = 0, telemetry=None,
+                 labels=None):
         sims = list(sims) if isinstance(sims, (list, tuple)) else [sims]
         cfg0 = sims[0].cfg
         for sim in sims:
@@ -215,6 +299,14 @@ class RoundPipeline:
                 raise ValueError("a pipeline batch runs on one device")
         self.sims = sims
         self.progress = progress
+        # every pipeline has a telemetry session (a directory-less one costs
+        # nothing but still backs PipelineStats with a live registry); the
+        # round-stats lane and the round log at level >= 2
+        self.telemetry = (telemetry if telemetry is not None
+                          else TelemetrySession())
+        self._labels = (list(labels) if labels is not None
+                        else [f"sim{i}" for i in range(len(sims))])
+        self._lane = int(cfg0.telemetry) >= 2
         # snapshots every ``checkpoint_every`` rounds at chunk boundaries;
         # ``checkpoint_wrap`` wraps each payload (a sweep's envelope)
         self.checkpoint_path = checkpoint_path
@@ -283,8 +375,19 @@ class RoundPipeline:
         self.k_rounds = (1 if self.fetch_l2s
                          else max(1, int(cfg0.rounds_per_dispatch)))
         graphed = dev.type == "cuda" and self.kernel_route
-        self.stats = PipelineStats(rounds_per_dispatch=self.k_rounds,
+        self.stats = PipelineStats(self.telemetry.registry,
+                                   rounds_per_dispatch=self.k_rounds,
                                    graphed=graphed)
+        self.stats.init_h2d_bytes += self.params.numel() * 4 + sum(
+            t.numel() * t.element_size() for t in (
+                self.data.x_train, self.data.y_train,
+                *(a for pair in self.data.tests for a in pair)))
+        # the lane: a (G, LANE_WIDTH) fp32 row block a round, each round's
+        # at its position in the chunk, copied to the host once a chunk
+        self.lane = (torch.zeros(
+            (self.k_rounds, bucket_block(s, G_BLOCK) if self.kernel_route
+             else s, LANE_WIDTH), dtype=torch.float32, device=dev)
+            if self._lane else None)
         # the buffers the graphs read, and the graphs (None: eager rounds)
         self._ws = self._workspace(cfg0) if graphed else None
         self.graphs = self._ws
@@ -299,13 +402,15 @@ class RoundPipeline:
         static = {"params": self.params, "scal": self._scal,
                   "x": self.data.x_train, "y": self.data.y_train,
                   **(self.opt_state or {}),
-                  **({"gcount": self.guard_counts} if self.guard else {})}
-        # the guard and the corruption multiplier change the round's work:
-        # a guarded or faulted run never replays another's graphs
+                  **({"gcount": self.guard_counts} if self.guard else {}),
+                  **({"lane": self.lane} if self._lane else {})}
+        # the guard, the corruption multiplier and the lane change the
+        # round's work: a guarded, faulted or level-2 run never replays
+        # another's graphs
         key = (str(self.device), self.s, self.d, self.d_pad, self.yogi,
                cfg0.scaling_rule, self.spec, cfg0.local_lr, cfg0.prox_mu,
                cfg0.local_steps, cfg0.local_batch, model_key(cfg0),
-               self.guard, self.faulty) + tuple(
+               self.guard, self.faulty, self._lane) + tuple(
             (k, tuple(t.shape), t.dtype) for k, t in static.items())
         ws = acquire(key)
         if ws is None:     # its own copies: the data may be a substrate's
@@ -321,6 +426,8 @@ class RoundPipeline:
             self.opt_state = {k: b[k] for k in ("m", "v", "t")}
         if self.guard:
             self.guard_counts = b["gcount"]
+        if self._lane:
+            self.lane = b["lane"]
         self.cache.rows = ws.cache_rows(self.cache.rows)
         return ws
 
@@ -348,10 +455,16 @@ class RoundPipeline:
                 self._run_chunk(chunk)
                 if (self.checkpoint_path and self.checkpoint_every
                         and r >= self._next_ckpt and r < rounds):
-                    self.checkpoint(r)
+                    with self.telemetry.span("checkpoint", round=r):
+                        self.checkpoint(r)
                     self._next_ckpt = r + self.checkpoint_every
                 for fp in plans:
                     if fp.crash_due(r - 1):
+                        # logged and flushed first: a hard crash is a
+                        # SIGKILL
+                        self.telemetry.event("crash", round=r - 1,
+                                             mode=fp.crash_mode)
+                        self.telemetry.flush()
                         fp.trigger_crash(r - 1)
         except InjectedCrash:
             self._release()
@@ -370,12 +483,20 @@ class RoundPipeline:
     def _run_chunk(self, rounds) -> list:
         """Schedule the chunk's rounds, upload their blocks in one copy,
         run their device rounds, then evaluate if the chunk ends on an
-        evaluation round.  Returns the scheduled rounds' RoundWork."""
-        with record_function("round.schedule"):
+        evaluation round; at level 2, copy the chunk's lane to the host
+        and log its round events.  Returns the scheduled rounds'
+        RoundWork.  Each stage is a telemetry span (``SPAN_NAMES``) and a
+        ``round.*`` profiler range."""
+        tel = self.telemetry
+        with tel.span("schedule", rounds=len(rounds)), \
+                record_function("round.schedule"):
             works = [w for w in map(self._schedule, rounds) if w is not None]
         if not works:
             return works
-        with record_function("round.pack"):
+        with tel.span("pack", rounds=len(works)), \
+                record_function("round.pack"):
+            for k, w in enumerate(works):
+                w.pos = k
             blocks = [self._pack(w) for w in works]
             chunk = upload(np.concatenate(blocks), self.device)
             off = 0
@@ -385,16 +506,21 @@ class RoundPipeline:
         self.stats.h2d_bytes += chunk.numel() * chunk.element_size()
         self.stats.dispatches["round"] += 1
         self.stats.rounds += len(works)
-        for w in works:
-            with record_function("round.device"):
-                l2 = self._device_round(w.r, w)
-            if self.fetch_l2s:
-                with record_function("round.feedback"):
-                    self._fetch_feedback(w, l2)
+        with tel.span("dispatch", rounds=len(works)):
+            for w in works:
+                with record_function("round.device"):
+                    l2 = self._device_round(w.r, w)
+        if self.fetch_l2s:          # one-round chunks: ``l2`` is works[0]'s
+            with tel.span("fetch"), record_function("round.feedback"):
+                self._fetch_feedback(works[0], l2)
         last = works[-1]
         if self.sims[last.order[0]].eval_due(last.r):
-            with record_function("round.eval"):
+            with tel.span("eval", round=last.r), \
+                    record_function("round.eval"):
                 self._eval(last)
+        if self._lane:
+            with tel.span("fetch"), record_function("round.lane"):
+                self._log_rounds(works)
         return works
 
     def _schedule(self, r: int):
@@ -430,7 +556,13 @@ class RoundPipeline:
             r, plans[i].t_now, scheds[i].t_end, len(plans[i].chosen),
             len(scheds[i].fresh_rows), len(scheds[i].landing))
             for i in order}
-        return RoundWork(r, order, plans, scheds, recs)
+        # the lane's cache occupancy, read now: the chunk's later rounds
+        # change the host cache before this round's device work runs (a
+        # feedback selector's new stragglers enter it after the round)
+        occ = ({i: len(sims[i].stale_cache) + (
+            len(scheds[i].new_stale) if self.fetch_l2s else 0)
+            for i in order} if self._lane else None)
+        return RoundWork(r, order, plans, scheds, recs, occ)
 
     @staticmethod
     def _feedback(sim, r, sched, l2s) -> None:
@@ -454,6 +586,32 @@ class RoundPipeline:
                 l2s[surv] = l2_host[work.first[i]:work.first[i] + len(surv)]
             self._feedback(sim, work.r, work.scheds[i], l2s)
 
+    def _log_rounds(self, works) -> None:
+        """The chunk's one device-to-host copy of its lane, then one round
+        event a live cell and round (``TelemetrySession.round_event``),
+        into the session's round log and the cell's ``round_events``.  A
+        cell without a group that round gets its host fields and zeros."""
+        lane = self.lane[:len(works)].cpu().numpy()
+        self.stats.d2h_bytes += lane.nbytes
+        for k, w in enumerate(works):
+            rows = dict(zip(w.groups, lane[k]))
+            for i in w.order:
+                row = rows.get(i)
+                if row is None:
+                    row = np.zeros(LANE_WIDTH, np.float32)
+                    row[:N_LANE_HOST] = self._lane_host(w, i)
+                ev = self.telemetry.round_event(self._labels[i], row,
+                                                w.recs[i])
+                self.sims[i].acct.round_events.append(ev)
+        self.telemetry.flush()
+
+    @staticmethod
+    def _lane_host(work, i) -> tuple:
+        """Cell ``i``'s host fields of round ``work`` (``N_LANE_HOST``)."""
+        sc = work.scheds[i]
+        return (work.r, sc.t_end, len(work.plans[i].chosen),
+                len(sc.fresh_rows), len(sc.landing), work.occ[i])
+
     def _eval(self, work) -> None:
         """The batched evaluation of the round's cells, their records'
         fill, and the accuracy-target early stops."""
@@ -476,15 +634,19 @@ class RoundPipeline:
         """Segment -> (start, stop) of a block of bucket ``b``: sample
         indices, row cells, scatter slots, fresh and stale gather rows,
         the (fresh, valid, tau) masks, the groups' params rows, the
-        attacker flags of an attacked batch, and the trained rows'
-        corruption multipliers (fp32 bits) of a faulted one."""
+        attacker flags of an attacked batch, the trained rows'
+        corruption multipliers (fp32 bits) of a faulted one, and at level
+        2 the round's position in its chunk and its groups' lane host
+        fields (fp32 bits)."""
         cfg = self.sims[0].cfg
         gn = b.groups * b.n
         sizes = (("bidx", b.rows * cfg.local_steps * cfg.local_batch),
                  ("cell", b.rows), ("scat", b.rows), ("fidx", gn),
                  ("sidx", gn), ("meta", 3 * gn), ("agg", b.groups),
                  ("att", gn if self.attack is not None else 0),
-                 ("fscale", b.rows if self.faulty else 0))
+                 ("fscale", b.rows if self.faulty else 0),
+                 ("lane_k", 1 if self._lane else 0),
+                 ("lane_host", N_LANE_HOST * b.groups if self._lane else 0))
         out, off = {}, 0
         for name, size in sizes:
             out[name] = (off, off + size)
@@ -494,7 +656,8 @@ class RoundPipeline:
     def _pack(self, work) -> np.ndarray:
         """Round ``work``'s int64 index block (``_layout``), on the final
         cache capacity of its chunk; sets its bucket, packed-row offsets,
-        groups and their sizes."""
+        groups and their sizes.  Logs each cell's surviving corrupted rows
+        as a ``fault`` event."""
         sims = self.sims
         bidx, cells, work.first, work.n_rows = pack_rows(
             sims, self.data, work.plans, work.order)
@@ -509,7 +672,7 @@ class RoundPipeline:
                    self.cache.capacity)
         work.groups, work.sizes, work.bucket = groups, sizes, b
         lay = self._layout(b)
-        block = np.zeros(lay["fscale"][1], np.int64)
+        block = np.zeros(lay["lane_host"][1], np.int64)
 
         def seg(name):
             lo, hi = lay[name]
@@ -533,8 +696,15 @@ class RoundPipeline:
                     if fp is not None and fp.has_corruption:
                         surv = sims[i].survivors(plan)[0]
                         lo = work.first[i]
-                        fscale[lo:lo + len(surv)] = _fp32_bits(
-                            fp.scale_for(work.r, plan.chosen)[surv])
+                        scale = fp.scale_for(work.r, plan.chosen)[surv]
+                        fscale[lo:lo + len(surv)] = _fp32_bits(scale)
+                        bad = int(np.count_nonzero(scale != 1.0))
+                        if bad:
+                            self.telemetry.event(
+                                "fault", cell=self._labels[i],
+                                round=int(work.r), corrupt_rows=bad)
+        if self._lane:
+            seg("lane_k")[:] = work.pos
         if not g:
             return block
         fidx = seg("fidx").reshape(g, n)
@@ -557,6 +727,11 @@ class RoundPipeline:
             if att is not None:
                 att[k, :size] = sims[i].attack_flags(work.r,
                                                      agg_lids(plan, sc))
+        if self._lane:
+            host = np.zeros((g, N_LANE_HOST), np.float32)
+            for k, i in enumerate(groups):
+                host[k] = self._lane_host(work, i)
+            seg("lane_host")[:] = _fp32_bits(host).ravel()
         return block
 
     def _views(self, b: Bucket, block) -> dict:
@@ -624,6 +799,8 @@ class RoundPipeline:
                                                         self.d_pad)
         cells, rule = v["agg"], cfg0.scaling_rule
         has = valid.any(dim=1)
+        if self._lane and self.attack is None:
+            lane = lane_norms(u, valid, self.d)
         screened = None      # (G, 3) [rejected non-finite, norm, survivors]
         if self.kernel_route and self.guard is not None:
             # the whole padded operand at once (its true D columns), the
@@ -637,6 +814,8 @@ class RoundPipeline:
                     [n_nf, n_out, valid.sum(dim=1, dtype=torch.int32)], 1)
         if self.kernel_route:
             gate = self._note_guard(cells, has, screened)
+            if self._lane:
+                self._lane_write(b, v, lane, has, gate, screened, valid)
             if not self.yogi:
                 old = self.params[cells]
                 rows = old if gate is None else old.clone()
@@ -650,10 +829,13 @@ class RoundPipeline:
                 rule=rule)
         elif self.attack is not None or self.robust is not None:
             sims, groups = self.sims, work.groups
+            att = (None if self.attack is None
+                   else v["att"].view(b.groups, b.n).bool())
+            if self._lane and att is not None:
+                lane = lane_norms(self._attacked(u, att, valid, work), valid,
+                                  self.d)
             agg, counts = robust_sweep(
-                u, fresh, tau, valid,
-                None if self.attack is None
-                else v["att"].view(b.groups, b.n).bool(), work.sizes,
+                u, fresh, tau, valid, att, work.sizes,
                 attack=self.attack, robust=self.robust,
                 betas=[sims[i].cfg.beta for i in groups],
                 rule_ids=[RULE_ID[sims[i].cfg.scaling_rule] for i in groups],
@@ -663,6 +845,10 @@ class RoundPipeline:
             self.robust_counts[cells] += counts[:, :2]
             gate = self._note_guard(cells, has,
                                     counts[:, 2:] if self.guard else None)
+            if self._lane:
+                self._lane_write(b, v, lane, has, gate,
+                                 counts[:, 2:] if self.guard else None,
+                                 valid, counts[:, :2])
         else:
             aggs, stats = [], []
             for k, (i, m) in enumerate(zip(work.groups, work.sizes)):
@@ -677,8 +863,10 @@ class RoundPipeline:
                     self.sims[i].cfg, uk, fresh[k, :m], tau[k, :m], vk,
                     not work.scheds[i].landing))
             agg = torch.stack(aggs)
-            gate = self._note_guard(cells, has,
-                                    torch.stack(stats) if stats else None)
+            screened = torch.stack(stats) if stats else None
+            gate = self._note_guard(cells, has, screened)
+            if self._lane:
+                self._lane_write(b, v, lane, has, gate, screened, valid)
         old = self.params[cells]
         if self.yogi:
             st = {key: s[cells] for key, s in self.opt_state.items()}
@@ -693,10 +881,46 @@ class RoundPipeline:
         self.params[cells] = (new if gate is None
                               else torch.where(gate[:, None], new, old))
 
+    def _attacked(self, u, att, valid, work):
+        """The operand with each group's attacker rows rewritten as the
+        robust step rewrites them (``apply_attack`` on the group's own
+        rows): what the server sees, which the lane's norms read."""
+        kind, scale, z = self.attack
+        out = u.clone()
+        for g, m in enumerate(work.sizes):
+            out[g, :m] = apply_attack(u[g, :m], att[g, :m], valid[g, :m],
+                                      kind=kind, scale=scale, z=z)
+        return out
+
+    def _lane_write(self, b: Bucket, v, norms, has, gate, screened, valid,
+                    robust=None) -> None:
+        """The round's (G, LANE_WIDTH) lane rows into its slot of the
+        chunk's lane buffer: the host fields from the block, the operand's
+        ``norms`` (``lane_norms``), the guard's counts (``screened``:
+        rejected non-finite, norm, survivors after the robust mask; None
+        when unguarded, the survivors then the valid rows less the robust
+        rejections), the robust counts (``robust``: rejected, trimmed) and
+        whether the update was applied."""
+        g = b.groups
+        host = v["lane_host"].to(torch.int32).view(torch.float32).view(
+            g, N_LANE_HOST)
+        zero = torch.zeros(g, dtype=torch.int32, device=norms.device)
+        rob = torch.stack([zero, zero], 1) if robust is None else robust
+        if screened is None:
+            screened = torch.stack(
+                [zero, zero, valid.sum(dim=1, dtype=torch.int32) - rob[:, 0]],
+                1)
+        applied = has if gate is None else has & gate
+        tail = torch.cat([screened[:, :2], rob, screened[:, 2:],
+                          applied[:, None]], dim=1).to(torch.float32)
+        self.lane[v["lane_k"], :g] = torch.cat([host, norms, tail],
+                                               dim=1)[None]
+
     def _note_guard(self, cells, has, screened):
         """Add a round's guard counts to its groups' device counters (the
-        padding groups' to the scratch row) and return the quorum gate
-        (G,) bool, or None when the guard is off."""
+        padding groups' to the scratch row; ``finalize`` notes each cell's
+        totals through the session) and return the quorum gate (G,) bool,
+        or None when the guard is off."""
         if screened is None:
             return None
         gate = screened[:, 2] >= self.guard[2]
@@ -717,7 +941,8 @@ class RoundPipeline:
 
     def finalize(self) -> list:
         """Write each cell's device model (and YoGi state, robust and guard
-        counters) back to its Simulator and finalize it, and hand the
+        counters) back to its Simulator and finalize it (the session notes
+        its counters, the registry's one write of them), and hand the
         graphs back for the next pipeline of this structure; returns the
         Accountings."""
         accts = []
@@ -730,7 +955,7 @@ class RoundPipeline:
                     "t": self.opt_state["t"][i].clone()}
             sim.robust_counts = self.robust_counts[i].clone()
             sim.guard_counts = self.guard_counts[i].clone()
-            accts.append(sim._finalize())
+            accts.append(sim._finalize(self.telemetry))
         self._release()
         return accts
 
@@ -752,7 +977,10 @@ class RoundPipeline:
         YoGi rows at the true D, each cell's stale-cache rows in its
         cache order (slot ids never reach a value, a resume re-seats the
         rows), and the device counters that reach the accounting only at
-        ``finalize``."""
+        ``finalize``.  Each cell's accounting carries its round log; the
+        payload carries the cells' labels and the session's round-log byte
+        offset, to which a resume into the same directory truncates the
+        log (``TelemetrySession.restore``)."""
         d = self.d
         params = self.params[:, :d].cpu().numpy()
         opt = ({k: t.cpu().numpy() for k, t in self.opt_state.items()}
@@ -777,7 +1005,9 @@ class RoundPipeline:
                 "fault_plan": sim.fault_plan})
         return {"version": 1, "kind": "pipeline", "next_round": int(r_next),
                 "done": list(self.done), "sims": payload_sims,
-                "cache_capacity": self.cache.capacity}
+                "cache_capacity": self.cache.capacity,
+                "labels": list(self._labels),
+                "telemetry": self.telemetry.state()}
 
     def checkpoint(self, r_next: int) -> None:
         """Write ``snapshot(r_next)`` (wrapped by ``checkpoint_wrap``) to

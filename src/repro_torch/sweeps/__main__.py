@@ -8,6 +8,7 @@
   PYTHONPATH=src python -m repro_torch.sweeps --smoke --checkpoint S.pkl \
       --crash-after 3 --crash-hard          # exits 137 after round 3
   PYTHONPATH=src python -m repro_torch.sweeps --resume S.pkl --out R.json
+  PYTHONPATH=src python -m repro_torch.sweeps --smoke --telemetry-dir T
 
 Expands a policy x SAA x hardware grid (or, with ``--selector``, a
 selector race under matched seeds), runs it batched, re-runs every cell
@@ -19,9 +20,13 @@ snapshot every ``--checkpoint-every`` rounds, ``--crash-after R`` crashes
 the batched run once round R is done (an exception, or with
 ``--crash-hard`` a SIGKILL, exit code 137), and ``--resume PATH`` finishes
 a crashed sweep from its snapshot, bit for bit the uninterrupted sweep.
+``--telemetry-dir DIR`` runs the batched cells at telemetry level 2 and
+exports the run there: ``rounds.jsonl`` (a line a cell and recorded
+round), ``events.jsonl``, ``trace.json`` (Perfetto) and ``metrics.prom``;
+the serial runs they are checked against stay at level 0 and K = 1.
 Unlike the reference it writes a JSON payload only when ``--out`` names a
-path.  The reference's sharding and telemetry flags raise, naming the
-ROADMAP.md item that ports them.
+path.  The reference's sharding flags raise, naming the ROADMAP.md item
+that ports them.
 """
 from __future__ import annotations
 
@@ -40,7 +45,6 @@ from repro_torch.sweeps.runner import exact_parity, resume_sweep, unported
 UNPORTED_FLAGS = {
     "sharded": ("sweep-axis sharding", 14),
     "participant_shards": ("participant sharding", 14),
-    "telemetry_dir": ("telemetry", 12),
 }
 
 
@@ -98,7 +102,10 @@ def main(argv=None) -> None:
                     help="chaos: crash the batched run once round R is done")
     ap.add_argument("--crash-hard", action="store_true",
                     help="chaos: crash by SIGKILL instead of an exception")
-    ap.add_argument("--telemetry-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                    help="run the batched cells at telemetry level 2 and "
+                         "export rounds.jsonl, events.jsonl, trace.json "
+                         "(Perfetto) and metrics.prom there")
     args = ap.parse_args(argv)
 
     for flag, (what, item) in UNPORTED_FLAGS.items():
@@ -113,8 +120,22 @@ def main(argv=None) -> None:
             from repro_torch.robust.aggregators import describe_aggregators
             print(describe_aggregators())
         return
+    telemetry = None
+    if args.telemetry_dir:
+        from repro_torch.telemetry import TelemetrySession
+        telemetry = TelemetrySession(args.telemetry_dir)
+    try:
+        _run(args, telemetry)
+    finally:
+        if telemetry is not None:
+            telemetry.close()
+            print(f"# telemetry exported to {args.telemetry_dir}")
+
+
+def _run(args, telemetry) -> None:
     if args.resume:
-        results, wall = resume_sweep(args.resume, device=args.device)
+        results, wall = resume_sweep(args.resume, device=args.device,
+                                     telemetry=telemetry)
         print(f"# resumed from {args.resume} in {wall:.2f}s "
               f"({len(results)} cells)")
         print(text_table(results))
@@ -145,6 +166,9 @@ def main(argv=None) -> None:
         cells = [dataclasses.replace(c, config=dataclasses.replace(
             c.config, rounds_per_dispatch=args.rounds_per_dispatch))
             for c in cells]
+    if telemetry is not None:
+        cells = [dataclasses.replace(c, config=dataclasses.replace(
+            c.config, telemetry=2)) for c in cells]
     print(f"# sweep: {len(cells)} cells "
           f"({' x '.join(f'{a}[{len(v)}]' for a, v in spec.axes.items())}"
           f" x seeds[{len(spec.seeds)}])")
@@ -159,11 +183,13 @@ def main(argv=None) -> None:
     results, batched_wall = run_batched(
         cells, device=args.device, fault_plan=fault_plan,
         checkpoint_path=args.checkpoint,
-        checkpoint_every=args.checkpoint_every if args.checkpoint else 0)
-    # the serial runs stay at K = 1: an independent ground truth
+        checkpoint_every=args.checkpoint_every if args.checkpoint else 0,
+        telemetry=telemetry)
+    # the serial runs stay at K = 1 and telemetry level 0: an independent
+    # ground truth (level 2 moves no bit, so parity also shows that)
     serial, serial_wall = run_serial(
         [dataclasses.replace(c, config=dataclasses.replace(
-            c.config, rounds_per_dispatch=1)) for c in cells],
+            c.config, rounds_per_dispatch=1, telemetry=0)) for c in cells],
         device=args.device)
     exact = exact_parity(resolve_device(args.device))
     assert_parity(results, serial, exact=exact)

@@ -29,6 +29,12 @@ class CellResult:
     summary: SimSummary
     acct: Optional[Accounting] = None      # full round records when retained
 
+    @property
+    def round_log(self) -> list:
+        """The cell's telemetry round events (``SimConfig.telemetry >= 2``;
+        empty at a lower level or without ``acct``)."""
+        return self.acct.round_events if self.acct is not None else []
+
 
 class SweepResults:
     def __init__(self, results: Sequence[CellResult]):
@@ -130,6 +136,13 @@ class SweepResults:
                 for k in keys:
                     out[k] = int(sum(r.summary[k] for r in self.results))
         return out
+
+    def round_logs(self) -> dict:
+        """{cell name: round events} of the cells that logged any; kept out
+        of ``to_json_dict`` (the round log belongs in the telemetry
+        directory's ``rounds.jsonl``)."""
+        return {r.cell.name: r.round_log for r in self.results
+                if r.round_log}
 
     def to_json_dict(self) -> dict:
         return {"cells": [{"name": r.cell.name,

@@ -32,12 +32,15 @@ every cell, guarded cells screen their rows on both executors, and a fused
 sweep takes crash-safe snapshots (``checkpoint_path``,
 ``checkpoint_every``: the in-flight batch's pipeline snapshot in an
 envelope with the grid and the finished cells' accountings), which
-``resume_sweep`` finishes bit for bit.  Sweep-axis and participant
-sharding (ROADMAP queue 1 item 14) and telemetry (item 12) are not ported:
-asking for them raises.
+``resume_sweep`` finishes bit for bit.  A ``TelemetrySession``
+(``telemetry``) is shared by every batch: one registry, one trace (a
+``batch`` span a fused batch) and, for level-2 cells, one round log, a
+line a cell and recorded round.  Sweep-axis and participant sharding
+(ROADMAP queue 1 item 14) are not ported: asking for them raises.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import OrderedDict
@@ -82,10 +85,13 @@ class SweepRunner:
     prebuilt ``Substrate`` (the tests inject the reference's initial
     weights this way); ``fault_plan`` applies to every cell;
     ``checkpoint_path`` with ``checkpoint_every`` writes a resumable sweep
-    snapshot every ``checkpoint_every`` rounds of a fused batch.  After
-    ``run()``, ``sims[i]`` holds cell i's finished Simulator (its final
-    ``flat_params``) and ``batch_stats`` each fused batch's
-    ``PipelineStats.as_dict()``, in batch order."""
+    snapshot every ``checkpoint_every`` rounds of a fused batch;
+    ``telemetry`` is a ``TelemetrySession`` every fused batch shares.
+    After ``run()``, ``sims[i]`` holds cell i's finished Simulator (its
+    final ``flat_params``) and ``batch_stats`` each fused batch's
+    ``PipelineStats.as_dict()``, in batch order: without a session each
+    batch's own counters, with one the shared registry's totals so far
+    (the graph counters stay each batch's own)."""
     cells: Sequence[Cell]
     device: Optional[object] = None
     substrate_cache: Optional[dict] = None
@@ -101,8 +107,6 @@ class SweepRunner:
     def __post_init__(self):
         if self.shard or self.mesh is not None or self.shard_participants:
             raise unported("sweep-axis and participant sharding", 14)
-        if self.telemetry is not None:
-            raise unported("sweep telemetry", 12)
         self.device = resolve_device(self.device)
         if self.substrate_cache is None:
             self.substrate_cache = {}
@@ -134,12 +138,15 @@ class SweepRunner:
                               device=self.device, fault_plan=self.fault_plan)
                     for i in idxs]
             if sims[0].cfg.fused_rounds:
-                pipe = RoundPipeline(
-                    sims, progress=self.progress,
-                    checkpoint_path=self.checkpoint_path,
-                    checkpoint_every=self.checkpoint_every,
-                    checkpoint_wrap=self._ckpt_wrap(idxs, completed))
-                accts = pipe.run()
+                with self._span("batch", cells=len(idxs)):
+                    pipe = RoundPipeline(
+                        sims, progress=self.progress,
+                        checkpoint_path=self.checkpoint_path,
+                        checkpoint_every=self.checkpoint_every,
+                        checkpoint_wrap=self._ckpt_wrap(idxs, completed),
+                        telemetry=self.telemetry,
+                        labels=[self.cells[i].name for i in idxs])
+                    accts = pipe.run()
                 self.batch_stats.append(pipe.stats.as_dict())
             else:
                 accts = self._run_batch_stages(sims)
@@ -149,6 +156,12 @@ class SweepRunner:
         return SweepResults([CellResult(cell=c, summary=completed[i].summary(),
                                         acct=completed[i])
                              for i, c in enumerate(self.cells)])
+
+    def _span(self, name: str, **args):
+        """A span of the shared session (a null context without one)."""
+        if self.telemetry is None:
+            return contextlib.nullcontext()
+        return self.telemetry.span(name, **args)
 
     def _ckpt_wrap(self, idxs, completed):
         """The envelope of a batch's pipeline snapshots: the grid, the
@@ -354,12 +367,11 @@ def resume_sweep(path: str, progress: bool = False, telemetry=None,
     from their stored accountings, the batch in flight resumes its
     pipeline mid-run, and the batches never started run afresh, each
     cell bit for bit the uninterrupted sweep's.  Returns (SweepResults,
-    wall seconds)."""
+    wall seconds).  ``telemetry``: the session of the resumed batches (its
+    round log truncated to the snapshot's offset first)."""
     from repro_torch.checkpoint.state import (SnapshotError,
                                               build_resumed_pipeline,
                                               load_snapshot)
-    if telemetry is not None:
-        raise unported("sweep telemetry", 12)
     t0 = time.time()
     payload = load_snapshot(path)
     if payload["kind"] != "sweep":
@@ -369,10 +381,14 @@ def resume_sweep(path: str, progress: bool = False, telemetry=None,
     completed = dict(payload["completed"])
     fp = payload.get("fault_plan")
     runner = SweepRunner(payload["cells"], device=device, progress=progress,
-                         fault_plan=None if fp is None else fp.without_crash())
-    pipe = build_resumed_pipeline(payload["pipeline"], progress=progress,
-                                  device=runner.device)
-    for i, acct in zip(payload["group"], pipe.run()):
+                         fault_plan=None if fp is None else fp.without_crash(),
+                         telemetry=telemetry)
+    with runner._span("batch", cells=len(payload["group"])):
+        pipe = build_resumed_pipeline(payload["pipeline"], progress=progress,
+                                      device=runner.device,
+                                      telemetry=telemetry)
+        accts = pipe.run()
+    for i, acct in zip(payload["group"], accts):
         completed[i] = acct
     return runner.run(completed), time.time() - t0
 

@@ -10,8 +10,11 @@ and the final params (int32 views) are compared, and the device counters
 (robust and guard) continue across the crash.  Also: the snapshot's error
 paths, the atomic write, the hard crash (SIGKILL, exit 137) through the
 sweep CLI and its ``--resume`` in subprocesses, and ``save_pytree`` /
-``load_pytree``.  The telemetry round log's byte continuation waits for
-telemetry (ROADMAP.md queue 1 item 12).
+``load_pytree``.  The telemetry round log joins the contract: a level-2
+run's ``rounds.jsonl`` after crash -> resume into the crashed run's
+directory is byte-equal to the uninterrupted run's (rounds logged past the
+last snapshot are truncated and re-emitted), at K = 1 and K = 4 and for a
+sweep, and the in-memory round log rides the snapshot.
 """
 import json
 import os
@@ -32,6 +35,7 @@ from repro_torch.sim import SimConfig, Simulator
 from repro_torch.sweeps import SweepSpec, resume_sweep
 from repro_torch.sweeps.__main__ import demo_spec
 from repro_torch.sweeps.runner import run_batched, summaries_equal
+from repro_torch.telemetry import TelemetrySession
 
 torch.set_num_threads(1)
 
@@ -188,6 +192,84 @@ def test_sweep_soft_crash_resume_is_bit_exact(k, tmp_path):
             got.cell.name
         assert [repr(r) for r in got.acct.records] == \
             [repr(r) for r in want.acct.records]
+
+
+# K, rounds, snapshot every, crash after, the round the crash fires after
+# (a chunk's last): rounds past the last snapshot are logged before it
+@pytest.mark.parametrize("k, rounds, every, after, fired",
+                         [(1, 8, 3, 4, 4), (4, 12, 6, 9, 11)])
+def test_crash_resume_round_log_byte_continues(k, rounds, every, after,
+                                               fired, tmp_path):
+    """A guarded level-2 run under faults: the crashed run logged rounds
+    past its last snapshot; the resumed session truncates them and the
+    resumed rounds re-emit them, so ``rounds.jsonl`` equals the
+    uninterrupted run's byte for byte (the counterpart of
+    ``tests/test_crash_resume.py``'s round-log test)."""
+    cfg = _cfg(rounds=rounds, guard=True, guard_reject_mult=5.0,
+               rounds_per_dispatch=k, telemetry=2)
+    plan = lambda after=None: FaultPlan(   # noqa: E731
+        n_learners=BASE["n_learners"], rounds=rounds, specs=NAN, seed=7,
+        crash_after=after, crash_mode="soft")
+    dirs = [str(tmp_path / "clean"), str(tmp_path / "crashed")]
+    ckpt = str(tmp_path / "run.pkl")
+    sess = TelemetrySession(dirs[0])
+    ref_sim = Simulator(cfg, device="cpu", fault_plan=plan())
+    ref = ref_sim.run(telemetry=sess)
+    sess.close()
+    sess = TelemetrySession(dirs[1])
+    with pytest.raises(InjectedCrash):
+        Simulator(cfg, device="cpu", fault_plan=plan(after)).run(
+            checkpoint_path=ckpt, checkpoint_every=every, telemetry=sess)
+    sess.close()
+    payload = load_snapshot(ckpt)
+    crashed = open(os.path.join(dirs[1], "rounds.jsonl"), "rb").read()
+    offset = payload["telemetry"]["rounds_offset"]
+    assert 0 < offset < len(crashed)          # rounds past the snapshot
+    assert len(payload["sims"][0]["state"]["acct"].round_events) == \
+        crashed[:offset].count(b"\n")
+    sess = TelemetrySession(dirs[1])           # the crashed run's directory
+    acct = resume_run(ckpt, device="cpu", telemetry=sess)
+    sess.close()
+    assert summaries_equal(dict(acct.summary()), dict(ref.summary()))
+    a, b = (open(os.path.join(d, "rounds.jsonl"), "rb").read() for d in dirs)
+    assert a == b and a.count(b"\n") == len(ref.records)
+    assert acct.round_events == ref.round_events
+    assert acct.summary()["rejected_nonfinite"] > 0
+    crash = [json.loads(line) for line in
+             open(os.path.join(dirs[1], "events.jsonl"))
+             if '"crash"' in line]
+    assert crash == [{"event": "crash", "round": fired, "mode": "soft"}]
+
+
+def test_sweep_round_log_byte_continues(tmp_path):
+    """A level-2 sweep crashed in its first batch and resumed into the
+    same telemetry directory: its round log (every cell's lines, by
+    label) equals the uninterrupted sweep's byte for byte."""
+    spec = SweepSpec(
+        axes={"policy": ["random", "relay"], "saa": [False, True]},
+        base=dict(n_learners=40, rounds=8, eval_every=4, n_target=4,
+                  mapping="label_uniform", telemetry=2),
+        seeds=(0,))
+    cells = spec.expand()
+    dirs = [str(tmp_path / "clean"), str(tmp_path / "crashed")]
+    sess = TelemetrySession(dirs[0])
+    ref, _ = run_batched(cells, device="cpu", telemetry=sess)
+    sess.close()
+    ckpt = str(tmp_path / "sweep.pkl")
+    plan = FaultPlan(n_learners=40, rounds=8, crash_after=4,
+                     crash_mode="soft")
+    sess = TelemetrySession(dirs[1])
+    with pytest.raises(InjectedCrash):
+        run_batched(cells, device="cpu", fault_plan=plan,
+                    checkpoint_path=ckpt, checkpoint_every=3, telemetry=sess)
+    sess.close()
+    sess = TelemetrySession(dirs[1])
+    results, _ = resume_sweep(ckpt, device="cpu", telemetry=sess)
+    sess.close()
+    a, b = (open(os.path.join(d, "rounds.jsonl"), "rb").read() for d in dirs)
+    assert a == b and a
+    assert results.round_logs() == ref.round_logs()
+    assert set(ref.round_logs()) == {c.name for c in cells}
 
 
 def test_snapshot_error_paths(tmp_path):

@@ -58,7 +58,9 @@ def test_no_source_mentions_jax_or_reference_imports():
                  "selection.flips", "selector_zoo", "sweeps", "sweeps.grid",
                  "checkpoint.state", "checkpoint.checkpoint", "chaos_round",
                  "sweeps.results", "sweeps.report", "sweeps.runner",
-                 "sweeps.__main__"):
+                 "sweeps.__main__", "telemetry", "telemetry.schema",
+                 "telemetry.registry", "telemetry.export", "telemetry.trace",
+                 "telemetry.session"):
         assert f"repro_torch.{name}" in names
 
 
@@ -72,17 +74,28 @@ def test_simulator_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
 
 @pytest.mark.parametrize("override,item", [
     (dict(fast_path=False), 15),
-    (dict(telemetry=2), 12),
     (dict(shard_participants=2), 14),
     (dict(benchmark="tokens", model="transformer"), 2),
     (dict(model="transformer"), 13),
     (dict(benchmark="tokens", selector="flips"), 2),
-    (dict(fused_rounds=False, telemetry=1), 12),
 ])
 def test_out_of_slice_configs_name_their_roadmap_item(override, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue 1 item {item}\)"):
         SimConfig(**override)
+
+
+@pytest.mark.parametrize("override,events", [
+    (dict(telemetry=2), 2), (dict(fused_rounds=False, telemetry=1), 0)])
+def test_telemetry_configs_are_accepted_and_run(override, events):
+    """Telemetry (queue 1 item 12, ported) on both substrates: level 2 on
+    the fused pipeline logs a round event a round, level 1 on the flat
+    path spans only."""
+    cfg = SimConfig(n_learners=10, rounds=2, eval_every=1,
+                    dynamic_availability=False, **override)
+    acct = Simulator(cfg, device="cpu").run()
+    assert acct.summary()["rounds"] == 2
+    assert len(acct.round_events) == events
 
 
 @pytest.mark.parametrize("override", [dict(guard=True),

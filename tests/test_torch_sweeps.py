@@ -536,11 +536,53 @@ def test_cli_chaos_flags_run(flag, tmp_path, capsys):
 
 @pytest.mark.parametrize("kw, item", [
     (dict(shard=True), 14), (dict(mesh=object()), 14),
-    (dict(shard_participants=2), 14), (dict(telemetry=object()), 12)])
+    (dict(shard_participants=2), 14)])
 def test_runner_unported_options_name_their_item(kw, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue 1 item {item}\)"):
         SweepRunner([], device="cpu", **kw)
+
+
+def test_runner_and_resume_take_a_telemetry_session(tmp_path):
+    """``SweepRunner(telemetry=)`` and ``resume_sweep(telemetry=)`` (queue 1
+    item 12, ported) run: one session for every batch, a round log line a
+    level-2 cell and round."""
+    from repro_torch.telemetry import TelemetrySession
+    cells = [dataclasses.replace(c, config=dataclasses.replace(
+        c.config, telemetry=2)) for c in SweepSpec(
+            axes={"saa": [False, True]}, base=dict(SMALL, rounds=4)).expand()]
+    sess = TelemetrySession(str(tmp_path / "t"))
+    res = SweepRunner(cells, device="cpu", telemetry=sess).run()
+    sess.close()
+    lines = (tmp_path / "t" / "rounds.jsonl").read_text().splitlines()
+    assert len(lines) == sum(len(r.acct.records) for r in res) > 0
+    ckpt = str(tmp_path / "s.pkl")
+    with pytest.raises(InjectedCrash):
+        run_batched(cells, device="cpu", checkpoint_path=ckpt,
+                    checkpoint_every=2, fault_plan=FaultPlan(
+                        n_learners=SMALL["n_learners"], rounds=4,
+                        crash_after=2, crash_mode="soft"))
+    sess = TelemetrySession()
+    got, _ = resume_sweep(ckpt, device="cpu", telemetry=sess)
+    assert got.round_logs() == res.round_logs()
+    assert sess.registry.value("pipeline_rounds") > 0
+
+
+def test_cli_telemetry_dir_runs(tmp_path, capsys):
+    """``--telemetry-dir`` (queue 1 item 12, ported): the batched cells run
+    at level 2 against serial runs at level 0, and the directory holds a
+    round log line a cell and recorded round, a trace that loads and a
+    Prometheus snapshot."""
+    out = tmp_path / "t"
+    cli.main(["--smoke", "--device", "cpu", "--telemetry-dir", str(out),
+              "--rounds-per-dispatch", "4"])
+    assert "per-cell metrics equal" in capsys.readouterr().out
+    lines = [json.loads(x) for x in
+             (out / "rounds.jsonl").read_text().splitlines()]
+    cells = cli.demo_spec(True).expand()
+    assert {e["cell"] for e in lines} == {c.name for c in cells}
+    assert json.loads((out / "trace.json").read_text())["traceEvents"]
+    assert "guard_rejected_nonfinite 0" in (out / "metrics.prom").read_text()
 
 
 def test_runner_checkpoint_path_runs(tmp_path):
