@@ -88,7 +88,18 @@ From the repository root, with nothing built beforehand.  It
      uninterrupted run's; the round logs against CPU runs; the sweep CLI
      with ``--telemetry-dir`` and a guarded sweep's ``metrics.prom``
      against its accountings; rounds/s at levels 0, 1 and 2 in turns, the
-     lane's device time, d2h bytes a chunk and the snapshot seconds;
+     lane's device time, d2h bytes a chunk and the snapshot seconds; then
+     the federated LM learner (``lm_fl_paths``): ``python -m
+     repro_torch.federated_lm``'s cell (tokens_skew, 32 learners, the
+     transformer LM, D = 213,312) with random selection, its ``--parity``
+     flat rerun, K = 4 and eager, its oort and flips race, rwkv6 and moe
+     at their default knobs and a RELAY+YoGi cell: kernels 1, 2 and 3 on
+     their chain (105-133 chunks of 2048 columns), once a round with a
+     group, kernels 1 and 2 replayed from the round graph; fused == flat,
+     K = 4 == K = 1 and eager == graphed bit for bit, host records equal
+     to CPU runs, params close to them (rwkv6's gradient), the pad
+     columns zero and the eval NLL falling, then kernels 1-4 against their
+     plain versions at the LM shapes; warm rounds/s graphed and eager;
   5. checks the result: finite parameters of the model's width; each flat
      campaign equal to its fused twin bit for bit (records, params and
      robust counters), each eager run to its graphed one; kernels 1 and 2
@@ -123,7 +134,8 @@ From the repository root, with nothing built beforehand.  It
      variant's time at n = 10, 16, 32, 64, 128 and 256; for
      ``weighted_aggregate`` the library call's kernel time, the chain's
      ``saa_apply`` (its route before) and where its host time goes (the
-     "wrapper host path" line);
+     "wrapper host path" line); kernels 1-3 on the chain at the LM
+     cells' shapes, and a profile of the example's LM cell;
      each build's registers and spills, per kernel, are printed after step 2.
 It exits non-zero, printing no result, on any failure or without a GPU.
 The next-to-last line is the per-kernel JSON summary, the last line
@@ -342,6 +354,22 @@ CAPTURE_MAX, SWEEP_CAPTURE_MAX = 24, 48
 # 13 valid rows padded to 16), the warm timings' turns a level, and its
 # crash's snapshot interval (rounds 12-15 are logged past the last one)
 LANE_SHAPE = (1, 16, MAIN_D)
+# the LM phase: python -m repro_torch.federated_lm's rounds, --race and the
+# zoo's other two LMs at their default knobs
+LM_ROUNDS = 30
+LM_RACE = ("random", "oort", "flips")
+LM_MODELS = ("rwkv6", "moe")
+# the LM cells held to CPU runs, and those chaotic in fp32 at their knobs
+# (in both packages: tests/test_torch_lm_learner.py), whose params are held
+# to the CPU's after one round, within LM_SPREAD_MULT times the most that
+# the initial row perturbed by 1e-7 (LM_SPREAD_SEEDS draws) moves the card's
+# own; their eager, warm and CPU reruns take LM_CHAOTIC_ROUNDS rounds
+LM_CPU = ("LM random", "LM oort", "LM flips", "LM moe", "LM RELAY+YoGi",
+          "LM rwkv6")
+LM_CHAOTIC = ("LM rwkv6",)
+LM_CHAOTIC_ROUNDS = 8
+LM_SPREAD_SEEDS = 3
+LM_SPREAD_MULT = 2.0
 TELEMETRY_REPS = 3
 TELEMETRY_CKPT_EVERY = 6
 
@@ -1581,17 +1609,20 @@ def aggregated(acct) -> int:
     return sum(1 for r in acct.records if r.n_fresh + r.n_stale > 0)
 
 
-def expected_launches(saa_ops, trim_ops, kernel, acct) -> dict:
+def expected_launches(saa_ops, trim_ops, kernel, acct, d=MAIN_D) -> dict:
     """The launches a run of ``kernel`` must make: one a round with a
-    group, kernels 1-4 each on the cluster kernel, the trimmed mean on the
-    variant each round's n takes (none for ``kernel`` None)."""
+    group, kernels 1-4 each on the variant its shape takes at the run's
+    padded width ``d`` (``ops.variant``: the cluster kernel at the
+    classifier's 7 chunks, the chain at the LM's 105-133), the trimmed mean
+    on the variant each round's n takes (none for ``kernel`` None)."""
     rows = [r.n_fresh + r.n_stale for r in acct.records
             if r.n_fresh + r.n_stale > 0]
     if kernel is None:
         return {}
     want = {kernel: len(rows)}
     if kernel in FUSED:
-        want[saa_ops.launch_key(kernel, "cluster")] = len(rows)
+        want.update(Counter(saa_ops.launch_key(
+            kernel, saa_ops.variant(1, n, d)) for n in rows))
     if kernel == TRIM:
         want.update(Counter(saa_ops.launch_key(TRIM, trim_ops.variant(n))
                             for n in rows))
@@ -1630,12 +1661,12 @@ def drive(sim, eager=False):
     return acct, pipe.stats.as_dict()
 
 
-def graph_gate(name, stats, kernel, n_records, cap_max=CAPTURE_MAX):
+def graph_gate(name, stats, kernel, n_records, cap_max=CAPTURE_MAX, d=MAIN_D):
     """Fail unless a fused run on kernel 1 or 2 replayed every round from
     its graphs (at most ``cap_max`` captures, none where an earlier run of
     its structure captured them all; each warm-up at most one launch of
-    its kernel, on the cluster kernel), and any other fused run ran
-    eagerly."""
+    its kernel, on the variant its padded width ``d`` takes), and any
+    other fused run ran eagerly."""
     from repro_torch.kernels.staleness_agg import ops
     graphed = kernel in (APPLY, AGG)
     if stats["graphed"] != graphed:
@@ -1643,11 +1674,11 @@ def graph_gate(name, stats, kernel, n_records, cap_max=CAPTURE_MAX):
     if not graphed:
         return
     warm, caps = stats["warmup_launches"], stats["graph_captures"]
+    key = ops.launch_key(kernel, ops.variant(1, 1, d))
     if not (stats["graph_replays"] == stats["rounds"] == n_records
             and caps <= cap_max
-            and set(warm) <= {kernel, ops.launch_key(kernel, "cluster")}
-            and warm.get(kernel, 0) == warm.get(ops.launch_key(kernel, "cluster"), 0)
-            <= caps):
+            and set(warm) <= {kernel, key}
+            and warm.get(kernel, 0) == warm.get(key, 0) <= caps):
         fail(f"{name}: {stats['graph_replays']} replays over {stats['rounds']} "
              f"rounds ({n_records} recorded), {caps} captures (at most "
              f"{cap_max}), warm-up launches {warm}")
@@ -2719,6 +2750,308 @@ def telemetry_paths(torch, launches) -> dict:
     return rep
 
 
+# --- the federated LM learner ---------------------------------------------
+
+
+def lm_cells() -> dict:
+    """The LM phase's cells: name -> (SimConfig, kernel).  The example's
+    cell (``python -m repro_torch.federated_lm``: tokens_skew, 32 learners,
+    6 a round, the transformer 2 x 64 wide) with random selection, its
+    ``--parity`` flat rerun, its ``--race``, rwkv6 and moe at their default
+    knobs, and the transformer under the quickstart's RELAY+YoGi."""
+    from repro_torch.federated_lm import cell_config
+    ex = lambda sel, **kw: cell_config(sel, LM_ROUNDS, 0, **kw)
+    cells = {"LM random": (ex("random"), APPLY),
+             "LM random flat": (ex("random", fused_rounds=False), CELL_AGG)}
+    for sel in LM_RACE[1:]:
+        cells[f"LM {sel}"] = (ex(sel), APPLY)
+    for model in LM_MODELS:
+        cells[f"LM {model}"] = (ex("random", model=model, model_params=()),
+                                APPLY)
+    cells["LM RELAY+YoGi"] = (ex("priority", apt=True, scaling_rule="relay",
+                                 server_opt="yogi"), AGG)
+    return cells
+
+
+def lm_chaotic_gap(torch, cfg, kernel, run) -> dict:
+    """A chaotic LM cell's first round on the card against the CPU, beside
+    the card's own spread.  The loss gradient at the initial row on the
+    first two learners' first ``local_batch`` sequences: card and CPU in
+    fp32 against each other and against the CPU in fp64.  The first
+    round's update: card against CPU, and the card's against its own from
+    the initial row perturbed by 1e-7 (relative; ``LM_SPREAD_SEEDS`` seeded
+    draws, the largest kept), and the CPU's likewise for the first draw.
+    Each gap as its largest difference (abs) and as the largest share of a
+    leaf's largest element (leaf_rel)."""
+    from repro_torch.core.aggregation import unflatten_update
+    from repro_torch.sim import Simulator, Substrate
+    sub = Substrate.build(cfg)
+    fns, spec = sub.model_fns, sub.flat_spec
+    b = cfg.local_batch
+    idx = [*sub.data.shards[0][:b], *sub.data.shards[1][:b]]
+    x = torch.from_numpy(sub.data.x_train[idx])
+    y = torch.from_numpy(sub.data.y_train[idx]).long()
+    grads = {}
+    for dev, d, dt in (("cuda", "cuda", torch.float32),
+                       ("cpu", "cpu", torch.float32),
+                       ("cpu64", "cpu", torch.float64)):
+        p = torch.from_numpy(sub.flat_params0).to(d, dt).repeat(2, 1)
+        p.requires_grad_(True)
+        mean, _ = fns.loss(unflatten_update(p, spec), x.view(2, b, -1).to(d),
+                           y.view(2, b, -1).to(d))
+        grads[dev] = torch.autograd.grad(mean.sum(), p)[0].cpu()
+    one = dataclasses.replace(cfg, rounds=1)
+    p0 = torch.from_numpy(sub.flat_params0)
+
+    def update(dev, row=None):
+        if row is None:
+            return run(one, kernel, device=dev)[1].flat_params.cpu() - p0
+        sim = Simulator(one, Substrate.build(one, flat_params0=row.numpy()),
+                        device=dev)
+        sim.run()
+        return sim.flat_params.cpu() - p0
+
+    def bumped(seed):
+        noise = torch.randn(p0.shape, generator=torch.Generator().manual_seed(seed))
+        return p0 * (1 + 1e-7 * noise)
+
+    def leaf_rel(a, b):
+        return max((a[..., lo:hi] - b[..., lo:hi]).abs().max().item()
+                   / b[..., lo:hi].abs().max().item()
+                   for lo, hi in zip(spec.offsets[:-1], spec.offsets[1:])
+                   if b[..., lo:hi].any())
+
+    def gap(a, b):
+        return {"abs": (a - b).abs().max().item(), "leaf_rel": leaf_rel(a, b)}
+    upd = {dev: update(dev) for dev in ("cuda", "cpu")}
+    card_spread = [gap(update("cuda", bumped(s)), upd["cuda"])
+                   for s in range(LM_SPREAD_SEEDS)]
+    return {"grad": gap(grads["cuda"], grads["cpu"]),
+            "grad_cuda_vs_fp64": gap(grads["cuda"], grads["cpu64"]),
+            "grad_cpu_vs_fp64": gap(grads["cpu"], grads["cpu64"]),
+            "update": gap(upd["cuda"], upd["cpu"]),
+            "update_max_abs": upd["cpu"].abs().max().item(),
+            "card_spread": {k: max(g[k] for g in card_spread)
+                            for k in ("abs", "leaf_rel")},
+            "card_spreads": card_spread,
+            "cpu_spread": gap(update("cpu", bumped(0)), upd["cpu"])}
+
+
+def lm_fl_paths(torch, launches, checks, check_grid, gen):
+    """The federated LM learner on the card: each LM cell once with
+    the launch counters zeroed (kernels 1-3 once a round with a group, on
+    the chain at the LM's d_pad; kernels 1 and 2 replayed from the round
+    graph, one a round), the example's cell again at K = 4 and eager;
+    gates: fused == flat, K = 4 == K = 1 and eager == graphed bitwise
+    (eager runs of every fused cell), host records == the port's CPU runs
+    (``LM_CPU``) with params within rtol 1e-3 / atol 1e-4 (``LM_CHAOTIC``
+    cells over ``LM_CHAOTIC_ROUNDS`` rounds: their loss gradient within
+    1e-4 of each leaf's largest element, their first round's update within
+    ``LM_SPREAD_MULT`` times the card's own spread), the pad columns of
+    the params (and YoGi state) exactly zero, the last eval's NLL below the
+    first's; then kernels 1-4 against their plain versions at every n and
+    d_pad the runs gave them.  Numbers: warm rounds/s graphed and eager a
+    cell.  Returns (report, a function timing kernels 1-3 on the chain at
+    the LM shapes, a function profiling the example's cell), the last two
+    run later with the other kernel times and profiles."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.staleness_agg import ops as saa_ops
+    from repro_torch.kernels.staleness_agg import ref as saa_ref
+    from repro_torch.kernels.trimmed_agg import ops as trim_ops
+    from repro_torch.sim import Simulator
+    from repro_torch.sim.pipeline import RoundPipeline
+    cells = lm_cells()
+    rep = {"paths": {}, "rounds_per_s": {}}
+    ns = {}                                  # (kernel, d_pad) -> n counted
+
+    def run(cfg, kernel, device="cuda", eager=False):
+        """One run: (Accounting, Simulator, stats, launches, d_pad,
+        seconds); the pad columns checked on a fused run."""
+        sim = Simulator(cfg, device=device)
+        d = sim.flat_params.numel()
+        d_pad = d + (-d) % saa_ops.D_BLK
+        LAUNCHES.clear()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = None
+        if cfg.fused_rounds:
+            pipe = RoundPipeline([sim])
+            if eager:
+                pipe.graphs, pipe.stats.graphed = None, False
+            acct, = pipe.run()
+            stats = pipe.stats.as_dict()
+            if pipe.d_pad != d_pad:
+                fail(f"LM {cfg.model}: pipeline d_pad {pipe.d_pad}, expected {d_pad}")
+            pads = [pipe.params[:, d:]] + ([pipe.opt_state[k][:, d:]
+                                            for k in ("m", "v")]
+                                           if pipe.yogi else [])
+            if any(t.any() for t in pads):
+                fail(f"LM {cfg.model} {cfg.selector}: pad columns D..d_pad not zero")
+        else:
+            acct = sim.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return (acct, sim, stats, dict(LAUNCHES), d_pad,
+                time.perf_counter() - t0)
+
+    gpu = {}
+    for name, (cfg, kernel) in cells.items():
+        acct, sim, stats, got, d_pad, secs = run(cfg, kernel)
+        want = expected_launches(saa_ops, trim_ops, kernel, acct, d=d_pad)
+        if not want or got != want or saa_ops.launch_key(kernel, "chain") not in got:
+            fail(f"{name}: launches {got}, expected {want} (one a round with a "
+                 f"group, on the chain at d_pad {d_pad})")
+        if stats is not None:
+            graph_gate(name, stats, kernel, len(acct.records), d=d_pad)
+        losses = [r.loss for r in acct.records if r.loss == r.loss]
+        if len(losses) < 2 or not losses[-1] < losses[0] or \
+                not torch.isfinite(sim.flat_params).all():
+            fail(f"{name}: eval NLL {losses} does not fall, or params not finite")
+        launches.update(got)
+        gpu[name] = (acct, sim)
+        rows = [r.n_fresh + r.n_stale for r in acct.records
+                if r.n_fresh + r.n_stale > 0]
+        ns.setdefault((kernel, d_pad), Counter()).update(rows)
+        rep["paths"][name] = {
+            "model": cfg.model, "D": sim.flat_params.numel(), "d_pad": d_pad,
+            "launches": got, "rounds": len(acct.records), "first_run_s": secs,
+            "nll_first_last": [losses[0], losses[-1]],
+            "final_accuracy": acct.summary()["final_accuracy"],
+            "rows_a_round": sorted(set(rows)), "pipeline": stats}
+        print(f"{name} ({cfg.model}, D={sim.flat_params.numel()}, d_pad {d_pad}): "
+              f"{got} over {len(rows)} aggregating rounds, {secs:.2f}s first run"
+              + ("" if stats is None else
+                 f"; {stats['graph_replays']} replays of {stats['graph_captures']} "
+                 "graphs") + f"; eval NLL {losses[0]:.4f} -> {losses[-1]:.4f}")
+    # fused == flat, K = 4 == K = 1, eager == graphed, bitwise
+    ex_cfg, _ = cells["LM random"]
+    if not same_run(torch, *gpu["LM random"], *gpu["LM random flat"]):
+        fail("LM random flat: differs from the fused pipeline, bitwise")
+    acct4, sim4, st4, got4, d_pad, _ = run(
+        dataclasses.replace(ex_cfg, rounds_per_dispatch=CHUNK_K), APPLY)
+    graph_gate(f"LM random K={CHUNK_K}", st4, APPLY, len(acct4.records), d=d_pad)
+    if got4 != rep["paths"]["LM random"]["launches"] or \
+            not same_run(torch, *gpu["LM random"], acct4, sim4):
+        fail(f"LM random K={CHUNK_K}: differs from K = 1 (launches {got4})")
+    launches.update(got4)
+    print(f"LM random: flat == fused and K={CHUNK_K} ({st4['dispatches']['round']} "
+          "chunks) == K = 1, bitwise")
+    # warm rounds/s, graphed and eager, each eager run == its graphed one
+    # (a chaotic cell's over its first LM_CHAOTIC_ROUNDS rounds, the
+    # graphed run then the one held to the CPU's)
+    warm = {}
+    for name, (cfg, kernel) in cells.items():
+        if not cfg.fused_rounds:
+            continue
+        if name in LM_CHAOTIC:
+            cfg = dataclasses.replace(cfg, rounds=LM_CHAOTIC_ROUNDS)
+        g_acct, g_sim, _, _, _, g_s = run(cfg, kernel)
+        e_acct, e_sim, _, _, _, e_s = run(cfg, kernel, eager=True)
+        warm[name] = (g_acct, g_sim)
+        base = warm[name] if name in LM_CHAOTIC else gpu[name]
+        if not (same_run(torch, *base, g_acct, g_sim)
+                and same_run(torch, *base, e_acct, e_sim)):
+            fail(f"{name}: a warm graphed or eager run differs, bitwise")
+        n = len(g_acct.records)
+        rep["rounds_per_s"][name] = {"graphed": n / g_s, "eager": n / e_s,
+                                     "rounds": n}
+        print(f"{name}: warm {n / g_s:.1f} rounds/s graphed, {n / e_s:.1f} "
+              f"eager (== graphed, bitwise; {n} rounds) ({card_line()})")
+    # the card against the port's CPU runs of the same cells (the flat cell
+    # equals the fused random one bitwise).  rwkv6 at its default knobs is
+    # chaotic in fp32 in both packages (tests/test_torch_lm_learner.py:
+    # a 1e-7 perturbation of the initial row parts its params past this
+    # tolerance within four rounds on the CPU): its params are held after
+    # one round, within LM_SPREAD_MULT times the card's own spread
+    rep["cpu_max_abs_diff"], rep["cpu_chaotic"] = {}, {}
+    for name in LM_CPU:
+        cfg, kernel = cells[name]
+        acct, sim = gpu[name]
+        if name in LM_CHAOTIC:
+            cfg = dataclasses.replace(cfg, rounds=LM_CHAOTIC_ROUNDS)
+            acct, sim = warm[name]
+        c_acct, c_sim = run(cfg, kernel, device="cpu")[:2]
+        if [host(r) for r in acct.records] != [host(r) for r in c_acct.records]:
+            fail(f"{name}: host records differ from the CPU run")
+        if name in LM_CHAOTIC:
+            g = rep["cpu_chaotic"][name] = lm_chaotic_gap(torch, cfg, kernel, run)
+            if g["grad"]["leaf_rel"] > 1e-4 or any(
+                    g["update"][k] > LM_SPREAD_MULT * g["card_spread"][k]
+                    for k in ("abs", "leaf_rel")):
+                fail(f"{name}: the loss gradient (leaf_rel > 1e-4) or the "
+                     f"first round's update (> {LM_SPREAD_MULT} x the card's "
+                     f"spread) differs from the CPU's: {g}")
+            continue
+        p_gpu = sim.flat_params.cpu()
+        err = (p_gpu - c_sim.flat_params).abs().max().item()
+        if not torch.allclose(p_gpu, c_sim.flat_params, rtol=1e-3, atol=1e-4):
+            fail(f"{name}: params differ from the CPU run by {err}")
+        rep["cpu_max_abs_diff"][name] = err
+    print("LM cells " + ", ".join(LM_CPU) + ": host records == CPU runs; "
+          "params max abs diff " + ", ".join(
+              f"{k} {v:.3g}" for k, v in rep["cpu_max_abs_diff"].items())
+          + " (rtol 1e-3, atol 1e-4)")
+    for k, v in rep["cpu_chaotic"].items():
+        print(f"{k} (first {LM_CHAOTIC_ROUNDS} rounds against the CPU): loss "
+              f"gradient card vs CPU {v['grad']['leaf_rel']:.3g} of a leaf's "
+              f"largest element (<= 1e-4; against fp64: card "
+              f"{v['grad_cuda_vs_fp64']['leaf_rel']:.3g}, CPU "
+              f"{v['grad_cpu_vs_fp64']['leaf_rel']:.3g}); first round's "
+              f"update (largest {v['update_max_abs']:.4g}) card vs CPU "
+              f"{v['update']['abs']:.3g} abs, {v['update']['leaf_rel']:.3g} "
+              f"leaf_rel (<= {LM_SPREAD_MULT} x the card's spread: "
+              f"{v['card_spread']['abs']:.3g} abs, "
+              f"{v['card_spread']['leaf_rel']:.3g} leaf_rel, the most of "
+              f"{LM_SPREAD_SEEDS} draws of a 1e-7 perturbation); the CPU's "
+              f"spread (one draw) {v['cpu_spread']['abs']:.3g} abs, "
+              f"{v['cpu_spread']['leaf_rel']:.3g} leaf_rel ({card_line()})")
+    # kernels 1-4 against their plain versions at the LM runs' n and d_pad
+    before = sum(checks.n.values())
+    shapes = sorted({(1, n, d_pad) for (_, d_pad), c in ns.items() for n in c})
+    check_grid(shapes)
+    rep["kernel_checks"] = {"shapes": shapes,
+                            "checks": sum(checks.n.values()) - before}
+    print(f"LM shapes: kernels == plain versions at {shapes} (every rule and "
+          f"case): {sum(checks.n.values()) - before} more checks")
+
+    def time_chain():
+        """Kernels 1-3 at the LM shapes (n the cells saw most, their
+        d_pad), events / graph / profiler ms beside bound and plain."""
+        out = {}
+        for (kernel, d_pad), c in sorted(ns.items()):
+            n = c.most_common(1)[0][0]
+            t = time_kernel(torch, saa_ops, saa_ref, kernel, 1, n, d_pad, 200, gen)
+            out[f"{kernel} n={n} d_pad={d_pad}"] = t
+            print(f"LM {kernel} n={n} d_pad={d_pad} [{t['variant']}]: kernel "
+                  f"{t['ms']:.4f} ms events, {t['device_ms']:.4f} graph, "
+                  f"{t['kernel_ms']:.5f} its kernels (profiler); plain "
+                  f"{t['plain_ms']:.4f} (graph {t['plain_device_ms']:.4f}); bound "
+                  f"{t['bound_ms']:.6f} ms ({t['bound_by']}) ({card_line()})")
+        return out
+
+    def profile_example():
+        """A profile of the example's cell, warm and graphed."""
+        prof = profile_campaign(torch, lambda: run(ex_cfg, APPLY))
+        n = len(gpu["LM random"][0].records)
+        prof["gpu_kernels_a_round"] = prof["gpu_kernels"] / n
+        idle = prof["device_idle_share"]
+        print(f"LM random profile: wall {prof['wall_ms']:.1f} ms, GPU busy "
+              f"{prof['device_busy_ms']:.1f} ms (idle share "
+              f"{'not measured' if idle is None else f'{idle:.3f}'}), "
+              f"{prof['gpu_kernels']} GPU kernels, "
+              f"{prof['gpu_kernels_a_round']:.1f} a round; host spans (CPU ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in
+                          sorted(prof["host_spans_ms"].items()))
+              + f" ({card_line()})")
+        for kname, ms in prof["top_kernels_ms"].items():
+            print(f"  {ms:9.3f} ms  {kname[:90]}")
+        rep["profile"] = prof
+        return prof
+
+    return rep, time_chain, profile_example
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3159,6 +3492,10 @@ def main():
     # --- telemetry: the round-stats lane in the round graph, the round log
     report["telemetry"] = telemetry_paths(torch, launches)
     lap("telemetry")
+    # --- the federated LM learner: kernels 1-3 on their chain -----------
+    report["lm"], time_lm_chain, profile_lm = lm_fl_paths(
+        torch, launches, checks, check_grid, gen)
+    lap("LM FL paths")
     # --- the sweep paths: lockstep batches of S cells --------------------
     report["sweeps"], profile_sweeps = sweep_paths(torch, gen, checks, launches)
     lap("sweep paths")
@@ -3264,8 +3601,10 @@ def main():
           f"column block: {times['flat_pad']['ms']:.4f} ms (device "
           f"{times['flat_pad']['device_ms']:.4f}) per round")
     times.update(time_lm_kernels(torch, gen))
+    times["lm_chain"] = time_lm_chain()
     lap("kernel times")
     profile_campaigns()       # last: the campaigns' and sweeps' profiles
+    profile_lm()
     lap("FL campaign profiles")
     profile_sweeps()
     lap("sweep profiles")

@@ -3,9 +3,9 @@ slice of ``repro.core.aggregation`` the round pipeline and the per-stage
 flat path run.
 
 A model's parameters travel as one flat fp32 row in ``FlatSpec`` leaf order
-(dict keys sorted, the order ``jax.tree.flatten`` gives the reference), so
-the stale cache, aggregation and server step never see the model's
-structure.  ``aggregate_updates`` / ``weights_and_aggregate_by_id`` are the
+(dict keys sorted, lists by index: the order ``jax.tree.flatten`` gives the
+reference), so the stale cache, aggregation and server step never see the
+model's structure.  ``aggregate_updates`` / ``weights_and_aggregate_by_id`` are the
 ``use_agg_kernel=False`` server path; with the flag on, the pipeline and
 ``stale_synchronous_aggregate_flat`` call the CUDA kernels in
 ``repro_torch.kernels.staleness_agg`` instead.
@@ -23,21 +23,61 @@ from repro_torch.core.staleness import EPS, RULE_ID, staleness_weights_by_id
 @dataclasses.dataclass(frozen=True)
 class FlatSpec:
     """Leaf names, shapes and start offsets (plus a total-D sentinel) of a
-    flattened parameter dict: ``flat[..., offsets[i]:offsets[i+1]]`` is leaf
-    ``names[i]``.  Hashable, computed once per model."""
+    flattened parameter tree: ``flat[..., offsets[i]:offsets[i+1]]`` is leaf
+    ``names[i]``.  Names are key paths joined by ``.`` (a flat dict's are
+    its keys) and ``tree`` is the nesting (``_skeleton``) from which
+    ``unflatten_update`` rebuilds the tree.  Hashable, computed once per
+    model."""
     names: tuple
     shapes: tuple
     offsets: tuple
+    tree: tuple
 
 
-def make_flat_spec(params: dict) -> FlatSpec:
-    names = tuple(sorted(params))
-    shapes = tuple(tuple(params[k].shape) for k in names)
+def _leaves(tree, path=()):
+    """(key path, leaf) of a tree of dicts and lists in ``jax.tree.flatten``'s
+    order: dict keys sorted, lists by index."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _skeleton(tree, count):
+    """The hashable nesting of ``tree``: ("d", ((key, sub), ...)) for a
+    dict (keys sorted), ("l", (sub, ...)) for a list, a leaf's index in
+    ``_leaves`` order for a leaf (``count`` is a one-element counter)."""
+    if isinstance(tree, dict):
+        return ("d", tuple((k, _skeleton(tree[k], count)) for k in sorted(tree)))
+    if isinstance(tree, (list, tuple)):
+        return ("l", tuple(_skeleton(v, count) for v in tree))
+    count[0] += 1
+    return count[0] - 1
+
+
+def _rebuild(skel, leaves):
+    if isinstance(skel, int):
+        return leaves[skel]
+    kind, subs = skel
+    if kind == "d":
+        return {k: _rebuild(sub, leaves) for k, sub in subs}
+    return [_rebuild(sub, leaves) for sub in subs]
+
+
+def make_flat_spec(params) -> FlatSpec:
+    leaves = list(_leaves(params))
+    names = tuple(".".join(map(str, path)) for path, _ in leaves)
+    shapes = tuple(tuple(leaf.shape) for _, leaf in leaves)
     offs, off = [], 0
     for s in shapes:
         offs.append(off)
         off += int(np.prod(s)) if s else 1
-    return FlatSpec(names, shapes, tuple(offs) + (off,))
+    return FlatSpec(names, shapes, tuple(offs) + (off,),
+                    _skeleton(params, [0]))
 
 
 def flat_dim(spec: FlatSpec) -> int:
@@ -45,22 +85,26 @@ def flat_dim(spec: FlatSpec) -> int:
     return int(spec.offsets[-1])
 
 
-def flatten_update(params: dict) -> tuple:
-    """Parameter dict -> (flat fp32 vector, its ``FlatSpec``)."""
+def flatten_update(params) -> tuple:
+    """Parameter tree -> (flat fp32 vector, its ``FlatSpec``): the leaves in
+    ``jax.tree.flatten``'s order, so the vector equals the reference's
+    element for element."""
     spec = make_flat_spec(params)
-    flat = torch.cat([torch.as_tensor(params[k]).reshape(-1).to(torch.float32)
-                      for k in spec.names])
+    flat = torch.cat([torch.as_tensor(leaf).reshape(-1).to(torch.float32)
+                      for _, leaf in _leaves(params)])
     return flat, spec
 
 
-def unflatten_update(flat: torch.Tensor, spec: FlatSpec) -> dict:
-    """Flat (..., D') rows -> dict of (..., *shape) views.  Leading axes
-    ride along (a batch of per-learner rows unflattens to batched leaves);
-    a row wider than D is block-padded and its tail is ignored."""
+def unflatten_update(flat: torch.Tensor, spec: FlatSpec):
+    """Flat (..., D') rows -> the parameter tree of (..., *shape) views.
+    Leading axes ride along (a batch of per-learner rows unflattens to
+    batched leaves); a row wider than D is block-padded and its tail is
+    ignored."""
     lead = tuple(flat.shape[:-1])
-    return {name: flat[..., lo:hi].reshape(lead + shp)
-            for name, shp, lo, hi in zip(spec.names, spec.shapes,
-                                         spec.offsets[:-1], spec.offsets[1:])}
+    leaves = [flat[..., lo:hi].reshape(lead + shp)
+              for shp, lo, hi in zip(spec.shapes, spec.offsets[:-1],
+                                     spec.offsets[1:])]
+    return _rebuild(spec.tree, leaves)
 
 
 def aggregate_updates(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -143,7 +143,10 @@ def _fused(kernel: str, mode: str, v: str, device, operands, s, n, d,
 
 
 def _scratch(s: int, n: int, d: int, device):
-    """Per-chunk partials scratch (num (S, D/2048, n), den (S, D/2048))."""
+    """Per-chunk partials scratch (num (S, D/2048, n), den (S, D/2048)).
+    Inside a CUDA graph capture (the round graphs of the LM learners, whose
+    D takes the chain) the caching allocator serves it from the graph's
+    private pool, and every replay reuses it."""
     nchunks = d // D_BLK
     return (torch.empty((s, nchunks, n), dtype=torch.float32, device=device),
             torch.empty((s, nchunks), dtype=torch.float32, device=device))

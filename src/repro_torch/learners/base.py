@@ -4,8 +4,9 @@ A model registers one :class:`ModelSpec` in ``MODEL_TABLE``; the engine
 consumes its :class:`ModelFns` triple of functions over parameter dicts:
 
 ``init(generator)``
-    ``torch.Generator`` -> parameter dict (CPU fp32 tensors).  The flat
-    ``(D,)`` row and its ``FlatSpec`` are derived from it.
+    ``torch.Generator`` -> parameter tree (nested dicts and lists of CPU
+    fp32 tensors; the MLP's is a flat dict).  The flat ``(D,)`` row and its
+    ``FlatSpec`` are derived from it.
 ``loss(params, x, y) -> (mean_loss, per_example_losses)``
     The local objective; leaves may carry a leading learner axis, and the
     means are then per learner.
@@ -24,10 +25,14 @@ from repro_torch.core.registry import Knob  # noqa: F401  (re-export)
 
 @dataclasses.dataclass(frozen=True)
 class DataMeta:
-    """Static description of a benchmark's sample layout."""
-    kind: str = "classifier"
-    feature_dim: int = 0
-    n_classes: int = 0
+    """Static description of a benchmark's sample layout (part of
+    ``build_model``'s cache key).  ``"classifier"``: x (N, dim) fp32, y (N,)
+    int; ``"tokens"``: x (N, S) int32 tokens, y (N, S) next-token labels."""
+    kind: str = "classifier"         # classifier | tokens
+    feature_dim: int = 0             # classifier: x feature dimension
+    n_classes: int = 0               # classifier: label cardinality
+    vocab: int = 0                   # tokens: vocabulary size
+    seq_len: int = 0                 # tokens: sequence length
 
 
 class ModelFns(NamedTuple):
@@ -42,5 +47,7 @@ class ModelSpec:
     name: str
     build: Callable[[dict, DataMeta], ModelFns]
     doc: str = ""
-    data_kind: str = "classifier"
+    data_kind: str = "classifier"    # classifier | tokens
+    family: str = "dense"            # dense | moe | rnn (listing aid)
+    kernel: str = "-"                # the kernel its forward can route through
     knobs: tuple = ()

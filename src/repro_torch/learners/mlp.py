@@ -19,5 +19,7 @@ register_model(ModelSpec(
     name="mlp",
     build=_build,
     doc="2-layer ReLU MLP classifier (the paper-scale statistical stand-in)",
+    family="dense",
+    kernel="-",
     knobs=(Knob("hidden", 128, "hidden layer width"),),
 ))

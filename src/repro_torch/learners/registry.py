@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import functools
 
-from repro_torch.core.registry import StrategyTable
+from repro_torch.core.registry import StrategyTable, describe_table
 from repro_torch.learners.base import DataMeta, ModelFns, ModelSpec
 
 MODEL_TABLE: StrategyTable = StrategyTable("model")
@@ -34,3 +34,22 @@ def build_model(name: str, params: tuple, meta: DataMeta) -> ModelFns:
             f"model {name!r} trains on {spec.data_kind!r} data but the "
             f"benchmark provides {meta.kind!r} samples")
     return spec.build(MODEL_TABLE.knob_values(name, params), meta)
+
+
+def describe_models() -> str:
+    """The model strategy table as text (``--list-models``)."""
+    rows = [(
+        spec.name,
+        spec.family,
+        spec.data_kind,
+        spec.kernel,
+        ", ".join(f"{k.name}={k.default!r}" for k in spec.knobs) or "-",
+        spec.doc,
+    ) for spec in MODEL_TABLE.values()]
+    return describe_table(
+        ("model", "family", "data", "kernel", "knobs (model_params)", "doc"),
+        rows,
+        footnote="data = sample layout the model trains on; benchmarks "
+                 "declare theirs (classifier: speech/cifar10/openimage, "
+                 "tokens: tokens/tokens_skew) and the pair is validated "
+                 "at substrate build time.")

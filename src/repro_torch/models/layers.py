@@ -99,7 +99,16 @@ def embed_init_params(gen, vocab: int, d_model: int, dtype):
 
 
 def embed_lookup(params, tokens):
-    return params["embedding"][tokens]
+    """``table[tokens]``.  With autograd on it is a one-hot (..., V) product
+    with the table: the same values (one nonzero term a sum), and a
+    backward that is a GEMM instead of an indexed accumulation of the
+    table's gradient (float atomics on CUDA), so training gives the same
+    bits every run."""
+    table = params["embedding"]
+    if not torch.is_grad_enabled():
+        return table[tokens]
+    cols = torch.arange(table.shape[0], device=tokens.device)
+    return (tokens[..., None] == cols).to(table.dtype) @ table
 
 
 def lm_head(params, x, tie_embedding: bool):

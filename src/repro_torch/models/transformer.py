@@ -1,14 +1,20 @@
 """Composable decoder-only model (``repro.models.transformer``), for the
 ported mixers: GQA attention (with an optional sliding window) and RWKV6,
-each followed by a dense SwiGLU FFN.
+each followed by a dense SwiGLU FFN or (on attention layers of an MoE
+config) the mixture of experts of ``repro_torch.models.moe``.
 
 A model is an optional unrolled *prefix* of layers followed by a periodic
 *super-block* repeated ``n_rep`` times.  The reference ``lax.scan``s the
 super-block over ``params["stack"]``, whose leaves carry a leading ``n_rep``
 axis; the port keeps that tree (so weights carry across by key path) and
-loops over the axis in Python.  MLA, Mamba, MoE and the vision frontend are
-not ported (ROADMAP.md queue 1 item 13); neither is ``shard_hints`` (a no-op
-on one device; queue 1 item 14).
+loops over the axis in Python.  MLA, Mamba and the vision frontend are not
+ported (ROADMAP.md queue 1 item 13); neither is ``shard_hints`` (a no-op on
+one device; queue 1 item 14).
+
+With autograd on, the token lookup (``layers.embed_lookup``) and the gold
+logit (``_onehot_gold``) are one-hot products: the same values, and a
+backward that is a GEMM instead of an indexed accumulation with float
+atomics, so training on the card gives the same bits every run.
 """
 from __future__ import annotations
 
@@ -20,8 +26,9 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rw
-from repro_torch.sim.engine import resolve_device
+from repro_torch.device import resolve_device
 
 _NOT_PORTED = "is not ported to repro_torch yet (ROADMAP.md queue 1 item 13)"
 
@@ -128,13 +135,11 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.frontend is not None:
         raise NotImplementedError(f"frontend {cfg.frontend!r} {_NOT_PORTED}")
     prefix, specs, _ = cfg.segment_plan()
-    for mixer, ffn in prefix + specs:
+    for mixer, _ in prefix + specs:
         if mixer not in ("attn", "rwkv6"):
             raise NotImplementedError(f"mixer {mixer!r} {_NOT_PORTED}")
         if mixer == "attn" and cfg.attn_type != "gqa":
             raise NotImplementedError(f"attention {cfg.attn_type!r} {_NOT_PORTED}")
-        if ffn != "dense":
-            raise NotImplementedError(f"ffn {ffn!r} {_NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +174,7 @@ def _tree_index(tree, i):
 
 
 def _layer_init(cfg: ModelConfig, gen, spec):
-    mixer, _ = spec
+    mixer, ffn = spec
     dev = gen.device
     p = {"norm1": L.rmsnorm_init(cfg.d_model, dev),
          "norm2": L.rmsnorm_init(cfg.d_model, dev)}
@@ -181,7 +186,13 @@ def _layer_init(cfg: ModelConfig, gen, spec):
                                    lora_rank=cfg.rwkv_lora_rank,
                                    w_lora_rank=cfg.rwkv_w_lora_rank,
                                    dtype=cfg.param_dtype)
-    p["ffn"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)
+    if ffn == "dense":
+        p["ffn"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)
+    else:
+        p["ffn"] = moe_lib.moe_init(gen, cfg.d_model, cfg.moe_d_ff,
+                                    cfg.n_experts, cfg.n_shared_experts,
+                                    cfg.shared_d_ff or cfg.moe_d_ff,
+                                    cfg.param_dtype)
     return p
 
 
@@ -205,12 +216,22 @@ def _mixer_decode(cfg, spec, p, x, position, state):
     return rw.rwkv6_decode(p, x, state, n_heads=cfg.n_heads)
 
 
+def _ffn_forward(cfg, spec, p, x):
+    """Returns (out, aux_loss)."""
+    if spec[1] == "dense":
+        return L.mlp(p["ffn"], x), torch.zeros((), dtype=torch.float32,
+                                                device=x.device)
+    return moe_lib.moe_forward(p["ffn"], x, n_experts=cfg.n_experts,
+                               top_k=cfg.top_k, group_size=cfg.moe_group_size)
+
+
 def _layer_forward(cfg, spec, p, x, positions, state):
     h, new_state = _mixer_forward(cfg, spec, p["mixer"],
                                   L.rmsnorm(p["norm1"], x, cfg.norm_eps),
                                   positions, state)
     x = x + h
-    return x + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], x, cfg.norm_eps)), new_state
+    h, aux = _ffn_forward(cfg, spec, p, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+    return x + h, new_state, aux
 
 
 def _layer_decode(cfg, spec, p, x, position, state):
@@ -218,7 +239,8 @@ def _layer_decode(cfg, spec, p, x, position, state):
                                  L.rmsnorm(p["norm1"], x, cfg.norm_eps),
                                  position, state)
     x = x + h
-    return x + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], x, cfg.norm_eps)), new_state
+    h, _ = _ffn_forward(cfg, spec, p, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+    return x + h, new_state
 
 
 # ---------------------------------------------------------------------------
@@ -281,9 +303,11 @@ def forward(cfg: ModelConfig, params, batch, *, return_states: bool = False):
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix_states = []
     for p, spec in zip(params["prefix"], prefix):
-        x, st = _layer_forward(cfg, spec, p, x, positions, None)
+        x, st, aux = _layer_forward(cfg, spec, p, x, positions, None)
+        aux_total = aux_total + aux
         prefix_states.append(st if return_states else None)
 
     stack_states = []
@@ -291,14 +315,45 @@ def forward(cfg: ModelConfig, params, batch, *, return_states: bool = False):
         p_slice = _tree_index(params["stack"], rep)
         states = {}
         for i, spec in enumerate(specs):
-            x, st = _layer_forward(cfg, spec, p_slice[f"sub{i}"], x, positions, None)
+            x, st, aux = _layer_forward(cfg, spec, p_slice[f"sub{i}"], x,
+                                        positions, None)
+            aux_total = aux_total + aux
             if return_states:
                 states[f"sub{i}"] = st
         stack_states.append(states)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     states = ({"prefix": prefix_states, "stack": _tree_stack(stack_states)}
               if return_states else None)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), states
+    return x, aux_total, states
+
+
+def _onehot_gold(logits, labels):
+    """logits[..., labels] as a one-hot product: the same values (one
+    nonzero term a sum), and a backward with no scatter."""
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    return (logits * (labels[..., None] == cols).to(logits.dtype)).sum(-1)
+
+
+def lm_loss(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01):
+    """Cross-entropy next-token loss (labels = batch["labels"]) plus
+    ``aux_weight`` times the MoE balance loss."""
+    x, aux, _ = forward(cfg, params, batch)
+    labels = batch["labels"]
+
+    def chunk_loss(xc, yc):
+        logits = _logits(cfg, params, xc).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        return (logz - _onehot_gold(logits, yc)).sum()
+
+    B, S, _ = x.shape
+    if cfg.loss_chunk and S > cfg.loss_chunk and S % cfg.loss_chunk == 0:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lo in range(0, S, cfg.loss_chunk):
+            hi = lo + cfg.loss_chunk
+            total = total + chunk_loss(x[:, lo:hi], labels[:, lo:hi])
+    else:
+        total = chunk_loss(x, labels)
+    return total / (B * S) + aux_weight * aux
 
 
 def prefill(cfg: ModelConfig, params, batch):

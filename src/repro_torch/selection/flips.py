@@ -15,10 +15,8 @@ learners (equal shares, largest-cluster-first remainder, overflow
 redistributed), and members are drawn uniformly within each cluster.
 No per-round device feedback is consumed.
 
-Port of ``repro.selection.flips`` for the classifier benchmarks: the label
-histograms, the k-means and the quotas are the reference's numpy code.
-The token adapter waits for the token datasets (ROADMAP.md queue 1 item
-2) and raises.
+Port of ``repro.selection.flips``: the label and token histograms, the
+k-means and the quotas are the reference's numpy code.
 """
 from __future__ import annotations
 
@@ -41,12 +39,24 @@ def label_histograms(data) -> np.ndarray:
 
 
 def token_histograms(data, top_k: int = 64) -> np.ndarray:
-    """The LM analogue of the label distribution (row-normalized unigram
-    histograms over the ``top_k`` most frequent tokens) for a token
-    ``FederatedDataset``: not ported with the token datasets."""
-    raise NotImplementedError(
-        "flips on a token benchmark (token_histograms) is not ported to "
-        "repro_torch yet (ROADMAP.md queue 1 item 2)")
+    """(n_learners, top_k) row-normalized unigram histograms for a token
+    ``FederatedDataset``: the LM analogue of the label distribution.
+
+    The vocabulary is restricted to the ``top_k`` globally most frequent
+    tokens (count desc, token id asc on ties): the skewed-unigram mappings
+    concentrate their signal there, and a fixed small feature keeps the
+    k-means distance geometry comparable to the classifier case."""
+    x = np.asarray(data.x_train)
+    vocab = int(data.vocab)
+    top_k = max(1, min(int(top_k), vocab))
+    glob = np.bincount(x.reshape(-1), minlength=vocab)
+    top = np.lexsort((np.arange(vocab), -glob))[:top_k]
+    hists = np.zeros((len(data.shards), top_k), np.float64)
+    for i, shard in enumerate(data.shards):
+        h = np.bincount(x[np.asarray(shard, int)].reshape(-1),
+                        minlength=vocab)[top]
+        hists[i] = h / max(h.sum(), 1)
+    return hists
 
 
 def learner_histograms(data, top_k: int = 64) -> np.ndarray:

@@ -47,6 +47,7 @@ from repro_torch.core.aggregation import (bucket_block, fedavg_apply,
                                           yogi_init_flat)
 from repro_torch.core.apt import AdaptiveParticipantTarget
 from repro_torch.core.availability import ForecasterBank
+from repro_torch.device import resolve_device  # noqa: F401  (re-exported)
 from repro_torch.faults import (ATTACK_KINDS, AttackSpec, FaultPlan,
                                 attack_key)
 from repro_torch.learners import MODEL_TABLE, DataMeta, build_model
@@ -147,8 +148,6 @@ class SimConfig:
 _UNPORTED = (
     (lambda c: not c.fast_path, "the legacy pytree engine (fast_path=False)", 15),
     (lambda c: bool(c.shard_participants), "participant sharding", 14),
-    (lambda c: c.benchmark in part.TOKEN_BENCHMARKS, "token benchmarks", 2),
-    (lambda c: c.model not in MODEL_TABLE, "learner models other than mlp", 13),
 )
 
 
@@ -176,7 +175,7 @@ class Substrate:
     traces: list
     trace_bank: tr.TraceBank
     rng_state: dict
-    params0: dict                      # initial model (CPU fp32 tensors)
+    params0: object                    # initial model tree (CPU fp32 tensors)
     flat_params0: np.ndarray           # same model, flat fp32 (D,)
     flat_spec: object
     meta: object = None
@@ -188,12 +187,22 @@ class Substrate:
     def build(cfg: SimConfig, flat_params0: Optional[np.ndarray] = None
               ) -> "Substrate":
         rng = np.random.default_rng(cfg.seed)
-        x_tr, y_tr, x_te, y_te = part.make_dataset(cfg.benchmark, rng)
-        shards = part.partition(y_tr, cfg.n_learners, cfg.mapping, rng)
-        data = part.FederatedDataset(cfg.benchmark, x_tr, y_tr, x_te, y_te,
-                                     shards)
-        meta = DataMeta(kind="classifier", feature_dim=int(x_tr.shape[1]),
-                        n_classes=data.n_classes)
+        if part.benchmark_kind(cfg.benchmark) == "tokens":
+            # token data derives from the seed alone and draws nothing from
+            # ``rng``: profiles and traces take the fresh generator's first
+            # draws, as in the reference
+            data = part.make_token_dataset(cfg.benchmark, cfg.n_learners,
+                                           cfg.seed)
+            meta = DataMeta(kind="tokens", vocab=data.vocab,
+                            seq_len=int(data.x_train.shape[1]))
+        else:
+            x_tr, y_tr, x_te, y_te = part.make_dataset(cfg.benchmark, rng)
+            shards = part.partition(y_tr, cfg.n_learners, cfg.mapping, rng)
+            data = part.FederatedDataset(cfg.benchmark, x_tr, y_tr, x_te,
+                                         y_te, shards)
+            meta = DataMeta(kind="classifier",
+                            feature_dim=int(x_tr.shape[1]),
+                            n_classes=data.n_classes)
         base_profiles = dev.sample_profiles(cfg.n_learners, rng)   # HS1 base
         traces = tr.make_traces(cfg.n_learners, rng,
                                 dynamic=cfg.dynamic_availability)
@@ -207,8 +216,8 @@ class Substrate:
             if flat0.shape != (flat_dim(flat_spec),):
                 raise ValueError(f"flat_params0 has shape {flat0.shape}, the "
                                  f"model needs ({flat_dim(flat_spec)},)")
-            params0 = {k: v.clone() for k, v in unflatten_update(
-                torch.from_numpy(flat0), flat_spec).items()}
+            params0 = unflatten_update(torch.from_numpy(flat0.copy()),
+                                       flat_spec)
         return Substrate(key=substrate_key(cfg), data=data,
                          base_profiles=base_profiles, traces=traces,
                          trace_bank=tr.TraceBank(traces),
@@ -217,9 +226,10 @@ class Substrate:
                          flat_spec=flat_spec, meta=meta, model_fns=model_fns)
 
     def device_data(self, device) -> tuple:
-        """(x_train, y_train, x_test, y_test) on ``device`` (labels int64),
-        uploaded once per substrate and device: every Simulator built on
-        this substrate, and every cell of a sweep batch, shares the copy."""
+        """(x_train, y_train, x_test, y_test) on ``device`` (labels int64;
+        classifier features fp32, token sequences int32), uploaded once per
+        substrate and device: every Simulator built on this substrate, and
+        every cell of a sweep batch, shares the copy."""
         key = str(torch.device(device))
         if key not in self._on_device:
             d = self.data
@@ -287,17 +297,6 @@ def agg_lids(plan: RoundPlan, sched: RoundSchedule) -> list:
             + [f.learner_id for f in sched.landing])
 
 
-def resolve_device(device) -> torch.device:
-    """The GPU unless the caller asks for another device; with no GPU and
-    no explicit request this raises instead of running on the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "plain PyTorch path on the CPU")
-    return torch.device("cuda")
-
-
 def _attach_attack(cfg: SimConfig, fault_plan):
     """The run's fault plan: ``fault_plan``, with ``cfg``'s coordinated
     attack attached when it has none (the reference's auto-attach; a
@@ -350,11 +349,15 @@ class SharedData:
         self.row_off = [int(offs[j]) for j in self.sub_idx]
 
     def batches(self, bidx: torch.Tensor, steps: int, batch: int):
-        """(bx (R, steps, batch, dim), by (R, steps, batch)) of the packed,
-        already offset sample indices ``bidx`` (R, steps * batch)."""
+        """(bx (R, steps, batch, *sample), by (R, steps, batch, *label)) of
+        the packed, already offset sample indices ``bidx`` (R, steps *
+        batch): a classifier's x rows are (dim,) and its labels scalars, a
+        token benchmark's x and y rows both (S,)."""
         r = bidx.shape[0]
-        return (self.x_train[bidx].view(r, steps, batch, -1),
-                self.y_train[bidx].view(r, steps, batch))
+        return (self.x_train[bidx].view(r, steps, batch,
+                                        *self.x_train.shape[1:]),
+                self.y_train[bidx].view(r, steps, batch,
+                                        *self.y_train.shape[1:]))
 
     def evaluate(self, sims, params, cells):
         """Host (accuracy, loss) arrays of ``cells`` (indices into

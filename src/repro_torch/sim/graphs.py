@@ -10,9 +10,13 @@ the round's packed indices, laid out by the round's padded shape
 cache capacity).  ``RoundGraphs`` owns those buffers and captures that
 function once per bucket, then replays it for every round of that shape:
 a round costs one device-to-device copy of its index block into the
-graph's static input and one graph launch, whatever the ~220 kernels
-inside (the batched MLP's forward and backward, the straggler scatter,
-the operand gathers, kernel 1 or kernel 2 and the YoGi step).
+graph's static input and one graph launch, whatever the kernels inside
+(the batched model's forward and backward: ~220 kernels for the MLP,
+~1,200 for the example's LM learner; the straggler scatter, the operand gathers, kernel 1
+or kernel 2 and the YoGi step).  Whatever a round allocates during its
+capture (activations, the chain variant's partials scratch past 16
+chunks) comes from the graphs' private pool and is reused by each
+replay.
 
 Like the reference's jit cache, the graphs outlive a run: a pipeline
 takes an idle ``RoundGraphs`` of its static structure (``acquire``), fills

@@ -1,10 +1,11 @@
 """Learner-side local training for the FL simulation (port of
 ``repro.sim.learner``).
 
-The simulation model is a 2-layer MLP classifier.  A round's whole cohort
-trains in one batched call: R learners' parameters are stacked into
-``(R, ...)`` leaves and every matmul is a ``torch.bmm`` over the learner
-axis.  The reference has no kernel for this step (it vmaps a jitted SGD
+The default simulation model is a 2-layer MLP classifier; any registered
+learner (``repro_torch.learners``: the LM zoo too) trains through the same
+``local_train_cohort``.  A round's whole cohort trains in one batched
+call: R learners' parameters are stacked into ``(R, ...)`` leaves and
+every matmul is batched over the learner axis.  The reference has no kernel for this step (it vmaps a jitted SGD
 loop), so it is plain torch.  The backward of the *sum* of per-learner mean
 losses gives each learner its own gradient, because rows never mix.
 
@@ -71,7 +72,8 @@ def local_train_cohort(flat_params: torch.Tensor, bx: torch.Tensor,
     row every learner starts from, or (R, D) rows, one a learner (a sweep
     batch gathers each row's cell model, as the reference's packed training
     does); a wider, block-padded row is read up to D.  bx: (R, steps,
-    batch, dim); by: (R, steps, batch) int64.  ``prox_mu > 0`` adds
+    batch, *sample) (a classifier's features, or a token sequence); by:
+    (R, steps, batch, *label) int64.  ``prox_mu > 0`` adds
     FedProx's proximal term.  Returns (deltas (R, out_dim or D) zero-padded
     past D, mean losses (R,), sqrt(mean loss^2) stats (R,)), each averaged
     over the steps.  Rows never mix, so a row's results do not depend on

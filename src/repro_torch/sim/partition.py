@@ -1,8 +1,9 @@
 """Synthetic federated datasets + the paper's data-to-learner mappings (§5.1).
 
-Port of the classifier half of ``repro.sim.partition`` (numpy, the
-reference's draw order).  Datasets are Gaussian-cluster classification
-problems with the label cardinalities of the paper's benchmarks.  Mappings:
+Port of ``repro.sim.partition`` (numpy, the reference's draw order).
+Classifier datasets are Gaussian-cluster classification problems with the
+label cardinalities of the paper's benchmarks; the token benchmarks are
+per-learner corpora of ``repro_torch.data.synthetic``.  Mappings:
   D1 "uniform"     — IID uniform random split
   D2 "fedscale"    — power-law learner sizes, labels from the global marginal
   D3 "label_<L>"   — label-limited: each learner holds ~10% of labels with
@@ -15,6 +16,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.data.synthetic import federated_token_shards
+
 BENCHMARKS = {
     # name: (n_classes, feature_dim, n_train, n_test)
     "speech": (35, 64, 7000, 1400),
@@ -22,8 +25,23 @@ BENCHMARKS = {
     "openimage": (60, 64, 9000, 1500),
 }
 
-# the reference's LM benchmarks; their token data is not ported yet
-TOKEN_BENCHMARKS = ("tokens", "tokens_skew")
+TOKEN_BENCHMARKS = {
+    # name: (vocab, seq_len, samples_per_learner, n_test, unigram skew)
+    "tokens": (1024, 64, 48, 256, 0.0),
+    "tokens_skew": (1024, 64, 48, 256, 0.5),
+}
+
+
+def benchmark_kind(name: str) -> str:
+    """The sample layout a benchmark provides: ``"classifier"`` (x (N, dim)
+    fp32 / y (N,) int labels) or ``"tokens"`` (x (N, S) int32 sequences /
+    y (N, S) next-token labels)."""
+    if name in TOKEN_BENCHMARKS:
+        return "tokens"
+    if name in BENCHMARKS:
+        return "classifier"
+    raise ValueError(f"unknown benchmark {name!r} (choose from "
+                     f"{tuple(BENCHMARKS) + tuple(TOKEN_BENCHMARKS)})")
 
 
 @dataclasses.dataclass
@@ -34,9 +52,13 @@ class FederatedDataset:
     x_test: np.ndarray
     y_test: np.ndarray
     shards: list            # shards[i] = np.ndarray of sample indices for learner i
+    kind: str = "classifier"    # sample layout (see ``benchmark_kind``)
+    vocab: int = 0              # tokens: vocabulary size
 
     @property
     def n_classes(self):
+        if self.kind == "tokens":
+            return int(self.vocab)
         return int(self.y_train.max()) + 1
 
 
@@ -56,6 +78,28 @@ def make_dataset(name: str, rng: np.random.Generator, class_sep: float = 2.2):
     x_tr, y_tr = sample(n_train)
     x_te, y_te = sample(n_test)
     return x_tr, y_tr, x_te, y_te
+
+
+def make_token_dataset(name: str, n_learners: int, seed: int) -> FederatedDataset:
+    """Federated token-shard dataset for the LM benchmarks.
+
+    Each learner owns a contiguous index block over the concatenated
+    per-learner corpora of ``federated_token_shards`` (the data-to-learner
+    mapping is the shard structure: token benchmarks ignore
+    ``SimConfig.mapping``); the held-out split is an unskewed corpus drawn
+    from an independent seed offset.  Everything derives from ``seed``
+    alone, so cells sharing a seed share bit-identical data.
+    """
+    vocab, seq_len, spl, n_test, skew = TOKEN_BENCHMARKS[name]
+    per = federated_token_shards(vocab, n_learners, spl, seq_len,
+                                 seed=seed, skew=skew)
+    x_tr = np.concatenate([s["tokens"] for s in per])
+    y_tr = np.concatenate([s["labels"] for s in per])
+    shards = [np.arange(i * spl, (i + 1) * spl) for i in range(n_learners)]
+    test = federated_token_shards(vocab, 1, n_test, seq_len,
+                                  seed=seed + 104729, skew=0.0)[0]
+    return FederatedDataset(name, x_tr, y_tr, test["tokens"], test["labels"],
+                            shards, kind="tokens", vocab=vocab)
 
 
 def partition(y: np.ndarray, n_learners: int, mapping: str,

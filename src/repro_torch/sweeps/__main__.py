@@ -3,6 +3,9 @@
   PYTHONPATH=src python -m repro_torch.sweeps --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.sweeps                  # GPU demo grid
   PYTHONPATH=src python -m repro_torch.sweeps --list-selectors
+  PYTHONPATH=src python -m repro_torch.sweeps --list-models
+  PYTHONPATH=src python -m repro_torch.sweeps --smoke --benchmark tokens \
+      --model transformer,rwkv6       # an LM sweep
   PYTHONPATH=src python -m repro_torch.sweeps --selector random,oort,safa
   PYTHONPATH=src python -m repro_torch.sweeps --rounds-per-dispatch 4
   PYTHONPATH=src python -m repro_torch.sweeps --smoke --checkpoint S.pkl \
@@ -11,7 +14,8 @@
   PYTHONPATH=src python -m repro_torch.sweeps --smoke --telemetry-dir T
 
 Expands a policy x SAA x hardware grid (or, with ``--selector``, a
-selector race under matched seeds), runs it batched, re-runs every cell
+selector race under matched seeds; ``--model`` adds a learner-model axis
+and ``--benchmark`` overrides the benchmark), runs it batched, re-runs every cell
 serially to assert equal metrics, and prints the paper-style
 resource-to-accuracy table with the batched and serial wall times.
 ``--rounds-per-dispatch K`` runs the batches in K-round chunks, against
@@ -36,6 +40,7 @@ import json
 import pathlib
 
 from repro_torch.sim.engine import resolve_device
+from repro_torch.sim.partition import TOKEN_BENCHMARKS
 from repro_torch.sweeps import (SweepSpec, assert_parity, run_batched,
                                 run_serial)
 from repro_torch.sweeps.report import savings_line, text_table
@@ -81,10 +86,18 @@ def main(argv=None) -> None:
                     help="add a coordinated-attack sweep axis")
     ap.add_argument("--attack-frac", type=float, default=0.25,
                     help="attacker fraction of the population (with --attack)")
+    ap.add_argument("--model", default=None, metavar="A,B",
+                    help="add a learner-model sweep axis (see --list-models; "
+                         "LM models need --benchmark tokens)")
+    ap.add_argument("--benchmark", default=None, metavar="B",
+                    help="override the grid's benchmark (classifier: speech/"
+                         "cifar10/openimage; LM: tokens/tokens_skew)")
     ap.add_argument("--list-selectors", action="store_true",
                     help="print the selector strategy table and exit")
     ap.add_argument("--list-aggregators", action="store_true",
                     help="print the robust-aggregator strategy table and exit")
+    ap.add_argument("--list-models", action="store_true",
+                    help="print the learner-model strategy table and exit")
     ap.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--participant-shards", type=int, default=0,
                     help=argparse.SUPPRESS)
@@ -112,13 +125,16 @@ def main(argv=None) -> None:
         value = getattr(args, flag)
         if value not in (None, False, 0):
             raise unported(what, item)
-    if args.list_selectors or args.list_aggregators:
+    if args.list_selectors or args.list_aggregators or args.list_models:
         if args.list_selectors:
             from repro_torch.selection import describe_selectors
             print(describe_selectors())
         if args.list_aggregators:
             from repro_torch.robust.aggregators import describe_aggregators
             print(describe_aggregators())
+        if args.list_models:
+            from repro_torch.learners import describe_models
+            print(describe_models())
         return
     telemetry = None
     if args.telemetry_dir:
@@ -161,6 +177,15 @@ def _run(args, telemetry) -> None:
     if args.attack:
         spec.axes = dict(spec.axes, attack=args.attack.split(","))
         spec.base = dict(spec.base, attack_frac=args.attack_frac)
+    if args.model:
+        spec.axes = dict(spec.axes, model=args.model.split(","))
+    if args.benchmark:
+        base = dict(spec.base, benchmark=args.benchmark)
+        # token benchmarks own their data-to-learner mapping (the shard
+        # structure): the grid's mapping goes
+        if args.benchmark in TOKEN_BENCHMARKS:
+            base.pop("mapping", None)
+        spec.base = base
     cells = spec.expand()
     if args.rounds_per_dispatch != 1:
         cells = [dataclasses.replace(c, config=dataclasses.replace(

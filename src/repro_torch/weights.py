@@ -3,9 +3,9 @@
 The reference draws its initial model from ``jax.random``, which torch
 cannot reproduce, so a parity run hands the reference's weights to
 ``Substrate.build(cfg, flat_params0=...)`` instead.  Both packages lay a
-parameter dict out flat in sorted-key leaf order (the order
-``jax.tree.flatten`` gives a dict), so the flat vectors agree element for
-element.  The model zoo's trees carry across whole (``from_jax_tree``).
+parameter tree out flat in ``jax.tree.flatten``'s leaf order (dict keys
+sorted, lists by index), so the flat vectors agree element for element.
+The model zoo's trees carry across whole (``from_jax_tree``).
 """
 from __future__ import annotations
 
@@ -15,11 +15,10 @@ import torch
 from repro_torch.core.aggregation import flatten_update
 
 
-def from_jax_params(params: dict) -> np.ndarray:
-    """A reference parameter dict (leaf name -> numpy array) as the port's
-    flat fp32 (D,) vector."""
-    flat, _ = flatten_update({k: torch.from_numpy(np.array(v, np.float32))
-                              for k, v in params.items()})
+def from_jax_params(params) -> np.ndarray:
+    """A reference parameter tree (a flat dict of arrays, or the LM zoo's
+    nested dicts and lists) as the port's flat fp32 (D,) vector."""
+    flat, _ = flatten_update(from_jax_tree(params))
     return flat.numpy()
 
 

@@ -60,8 +60,25 @@ def test_no_source_mentions_jax_or_reference_imports():
                  "sweeps.results", "sweeps.report", "sweeps.runner",
                  "sweeps.__main__", "telemetry", "telemetry.schema",
                  "telemetry.registry", "telemetry.export", "telemetry.trace",
-                 "telemetry.session"):
+                 "telemetry.session", "learners.lm", "models.moe",
+                 "data.synthetic", "federated_lm", "device"):
         assert f"repro_torch.{name}" in names
+
+
+def test_package_imports_without_a_cycle():
+    """The models, the learners and the engine import in either order in a
+    fresh interpreter: ``resolve_device`` lives in ``repro_torch.device``,
+    and ``repro_torch.sim.engine`` re-exports it."""
+    for first in ("repro_torch.models.transformer", "repro_torch.learners",
+                  "repro_torch.learners.lm", "repro_torch.sim.engine"):
+        code = (f"import {first}\n"
+                "from repro_torch.sim.engine import resolve_device\n"
+                "from repro_torch.device import resolve_device as r2\n"
+                "assert resolve_device is r2\n")
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, (first, out.stderr)
 
 
 def test_simulator_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
@@ -75,14 +92,55 @@ def test_simulator_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
 @pytest.mark.parametrize("override,item", [
     (dict(fast_path=False), 15),
     (dict(shard_participants=2), 14),
-    (dict(benchmark="tokens", model="transformer"), 2),
-    (dict(model="transformer"), 13),
-    (dict(benchmark="tokens", selector="flips"), 2),
 ])
 def test_out_of_slice_configs_name_their_roadmap_item(override, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue 1 item {item}\)"):
         SimConfig(**override)
+
+
+TINY_LM = (("d_ff", 8), ("d_model", 4), ("n_heads", 1), ("n_layers", 1))
+
+
+@pytest.mark.parametrize("override", [
+    dict(benchmark="tokens", model="transformer"),
+    dict(benchmark="tokens_skew", model="transformer", selector="flips"),
+    dict(benchmark="tokens", model="moe", fused_rounds=False),
+    dict(benchmark="tokens", model="rwkv6", use_agg_kernel=True),
+])
+def test_token_configs_are_accepted_and_run(override):
+    """Token data (queue 1 item 2) and the LM learners (item 13's learner),
+    ported: the configs that raised before are accepted and run on both
+    substrates, FLIPS on token data included."""
+    cfg = SimConfig(n_learners=8, rounds=2, eval_every=1, n_target=3,
+                    local_steps=1, local_batch=2, dynamic_availability=False,
+                    **{"model_params": TINY_LM, **override})
+    sim = Simulator(cfg, device="cpu")
+    s = sim.run().summary()
+    assert s["rounds"] == 2 and 0.0 <= s["final_accuracy"] <= 1.0
+    assert torch.isfinite(sim.flat_params).all()
+
+
+@pytest.mark.parametrize("model", ["transformer", "rwkv6"])
+def test_lm_use_kernels_names_its_roadmap_item(model):
+    """Training through the forward-only attention / WKV6 kernels is not
+    ported: the learner raises where it is built."""
+    cfg = SimConfig(benchmark="tokens", model=model,
+                    model_params=TINY_LM + (("use_kernels", 1),))
+    with pytest.raises(NotImplementedError,
+                       match=r"use_kernels=1 .*ROADMAP\.md queue 1 item 13\)"):
+        Simulator(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override,kind", [
+    (dict(model="transformer"), "classifier"),
+    (dict(benchmark="tokens", model="mlp"), "tokens"),
+])
+def test_model_on_the_wrong_data_kind_raises(override, kind):
+    """A model meets a benchmark of another sample layout: ValueError
+    naming the layout, where the substrate is built (as the reference)."""
+    with pytest.raises(ValueError, match=f"provides '{kind}' samples"):
+        Simulator(SimConfig(**override), device="cpu")
 
 
 @pytest.mark.parametrize("override,events", [
@@ -150,7 +208,6 @@ def test_slice_configs_are_accepted():
 @pytest.mark.parametrize("override,part", [
     (dict(block_pattern=("mamba",)), "mixer 'mamba'"),
     (dict(attn_type="mla"), "attention 'mla'"),
-    (dict(moe=True, n_experts=4, top_k=2, moe_d_ff=64), "ffn 'moe'"),
     (dict(frontend="vision"), "frontend 'vision'"),
 ])
 def test_unported_model_parts_name_their_roadmap_item(override, part):
@@ -177,6 +234,24 @@ def test_unported_architectures_name_their_roadmap_item(arch):
         with pytest.raises(NotImplementedError,
                            match=r"ROADMAP\.md queue 1 item 13\)"):
             get(arch)
+
+
+def test_moe_ffn_is_accepted_and_runs():
+    """The MoE ffn (queue 1 item 13, ported) is made, run and served."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import forward, init_decode_state, init_params
+    cfg = dataclasses.replace(get_reduced("internlm2-1.8b"), moe=True,
+                              n_experts=4, top_k=2, moe_d_ff=64,
+                              param_dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    assert params["stack"]["sub0"]["ffn"]["w_gate"].shape[1:] == (
+        4, cfg.d_model, 64)
+    x, aux, _ = forward(cfg, params,
+                        {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
+    assert x.shape == (1, 4, cfg.d_model) and float(aux) > 0.0
+    assert init_decode_state(cfg, 1, 8, "cpu")["stack"]["sub0"]["k"].shape[0] \
+        == cfg.n_layers
 
 
 def test_serve_path_needs_a_gpu_or_an_explicit_cpu(monkeypatch):

@@ -182,14 +182,18 @@ def test_flips_quotas_equal_reference(sizes, n_target):
 
 
 def test_flips_token_adapter_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1 item 2\)"):
-        flips.token_histograms(object())
-
-    class Tokens:
-        kind = "tokens"
-    with pytest.raises(NotImplementedError, match="token_histograms"):
-        flips.learner_histograms(Tokens())
+    """The token adapter (ROADMAP.md queue 1 item 2) is ported: a token
+    dataset's top-k unigram histograms == the reference's, and
+    ``learner_histograms`` dispatches on the dataset's kind."""
+    from repro.sim import partition as jpart
+    from repro_torch.sim import partition as tpart
+    j_data = jpart.make_token_dataset("tokens_skew", 12, 3)
+    t_data = tpart.make_token_dataset("tokens_skew", 12, 3)
+    want = jflips.token_histograms(j_data, top_k=16)
+    got = flips.token_histograms(t_data, top_k=16)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert np.array_equal(flips.learner_histograms(t_data),
+                          jflips.learner_histograms(j_data))
 
 
 def test_flips_needs_a_substrate():
