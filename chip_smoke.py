@@ -27,12 +27,13 @@ From the repository root, with nothing built beforehand.  It
      the same at every
      participant count n the paths ran a kernel at; holds the sliding-window
      attention kernels (bf16 on the tensor-core kernel, fp32 on the CUDA-core
-     one, each counted; GQA groups 1-8, head dims 64 and 128, windows 128,
+     one, each counted; GQA groups 1-8, head dims 64, 112 and 128 (other
+     head dims refused on the card), windows 128,
      384 and 8192, S at the query- and key-tile edges and below, at and past
      the window, both layouts) and the WKV6 kernel (head sizes 8-64, S of 1,
      31, 33, 200 and 4096, with and without an initial state, a state
      carried across calls) against their plain versions, each also at the
-     serve path's shape;
+     serve path's shape and attention at kimi-k2's (64 heads, Dh 112);
   4. drives the port's paths at full width, each with the launch counters
      zeroed just before it and read just after: at the quickstart's scale
      the fused pipeline's Random and RELAY campaigns
@@ -100,6 +101,15 @@ From the repository root, with nothing built beforehand.  It
      to CPU runs, params close to them (rwkv6's gradient), the pad
      columns zero and the eval NLL falling, then kernels 1-4 against their
      plain versions at the LM shapes; warm rounds/s graphed and eager;
+     then the zoo's other eight architectures (``arch_paths``) at full
+     width in bf16 under the long_500k window of 8192, one model at a
+     time, depth cut only where one card cannot hold the weights
+     (``ARCH_PATHS``): qwen2.5-3b, minicpm-2b, musicgen-medium,
+     deepseek-v2-lite (MLA: plain attention, no kernel 8), qwen2.5-32b,
+     internvl2 (256 patch embeddings before the tokens), jamba (Mamba and
+     attention) and kimi-k2 (Dh 112): a 1 x 16,384 prefill with exact
+     kernel 8 launches and B = 4 requests each (deepseek's absorbed and
+     naive), its prefill profile;
   5. checks the result: finite parameters of the model's width; each flat
      campaign equal to its fused twin bit for bit (records, params and
      robust counters), each eager run to its graphed one; kernels 1 and 2
@@ -112,7 +122,12 @@ From the repository root, with nothing built beforehand.  It
      close to the same runs on the CPU; the serve path's logits finite,
      close to a run of the plain versions (bf16: no further from the fp32
      model than the plain versions' bf16 run), prefill equal to decode after
-     a short prompt, and the reduced configs on the GPU equal to the CPU;
+     a short prompt, and the reduced configs of all ten architectures on
+     the GPU equal to the CPU; the eight architectures' kernel path against
+     the plain versions on the last 1,024 positions' logits (fp32 where a
+     copy fits, else bf16 against bf16), and on fp32 weights prefill ==
+     decode for MLA naive and absorbed, Mamba and the vision prefix, and
+     absorbed == naive MLA decode;
      the guard without faults equal to no guard bit for bit, the guarded
      runs finite and rejecting rows, ``repro_torch.chaos_round --smoke``
      passing the example's own gates on the card (within 0.15 of clean;
@@ -149,6 +164,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from collections import Counter
 from pathlib import Path
 
@@ -275,8 +291,33 @@ WKV_PLAIN_S = 512
 # the serve path's shapes: internlm2-1.8b+swa prefill (two windows), rwkv6
 # prefill at train_4k's length, requests as examples/serve_model.py sends them
 SWA_PATH = dict(B=1, S=16_384)
+# kernel 8 at kimi-k2's attention (B, S, H, Hkv, Dh, window): 7168 / 64 = 112
+KIMI_SWA = (1, 16_384, 64, 8, 112, 8192)
 WKV_PATH = dict(B=8, S=4_096)
 REQUESTS = dict(B=4, prompt=12, gen=24)
+# the zoo's other eight architectures at full width (``arch_paths``): arch ->
+# (layers run, None for all; kernel 8 launches a prefill).  Depth is cut
+# only where one card cannot hold the bf16 weights: qwen2.5-32b's 64 layers
+# to 16, internvl2's 80 to 8, jamba's 32 to one 8-layer super-block (7
+# Mamba, 1 attention; 4 MoE, 4 dense), kimi-k2's 61 to its dense first
+# layer and one MoE layer of all 384 experts.  deepseek's MLA runs plain
+# attention, as in the reference: no kernel 8 launch.
+ARCH_PATHS = {"qwen2.5-3b": (None, 36), "minicpm-2b": (None, 40),
+              "musicgen-medium": (None, 48), "deepseek-v2-lite-16b": (None, 0),
+              "qwen2.5-32b": (16, 16), "internvl2-76b": (8, 8),
+              "jamba-v0.1-52b": (8, 1), "kimi-k2-1t-a32b": (2, 2)}
+ARCH_S = 16_384               # prefill positions: two windows, so it slides
+# the kernel path against the plain versions, in fp32 and in bf16, at full
+# width, cut to 2 layers unless listed (jamba: its 8-layer super-block;
+# kimi-k2: its dense first layer alone, since a layer of its 384 experts is
+# 68 GB in fp32 and an empty MoE stack still draws one layer to shape it),
+# on the logits of the last rows of the prefill (all past the window)
+ARCH_PLAIN_CUT = {"jamba-v0.1-52b": dict(n_layers=8),
+                  "kimi-k2-1t-a32b": dict(n_layers=1, moe=False)}
+ARCH_LOGIT_ROWS = 1024
+# absorbed vs naive MLA decode logits in fp32: the reference's own test's
+# rtol = atol (tests/test_mla_absorb.py)
+MLA_ABSORB_TOL = 1e-3
 # the requests' profile: 4 prompt + 4 generated tokens (the profiler's cost
 # grows with its ~2,000 GPU kernels a decode step)
 PROFILE_REQUESTS = dict(prompt=4, gen=4)
@@ -1190,7 +1231,7 @@ def check_lm_kernels(torch, checks, gen):
         for s in sorted({*SWA_EDGE_S, window - 37, window - 1, window, window + 1,
                          window + 200, 3 * window + 5}):
             for g in (1, 2, 4, 8):
-                for dh in (64, 128):
+                for dh in swa_ops.HEAD_DIMS:
                     for dt in dtypes:
                         note("grid", dt, check_swa(
                             torch, swa_ops, swa_ref, checks, 2, s, 8, 8 // g, dh,
@@ -1202,6 +1243,20 @@ def check_lm_kernels(torch, checks, gen):
     for dt in dtypes:
         note("path", dt, check_swa(torch, swa_ops, swa_ref, checks, SWA_PATH["B"],
                                    SWA_PATH["S"], 16, 8, 128, 8192, dt, gen))
+        # kimi-k2's own shape: Dh 112 on the 128-wide kernels
+        note("kimi-k2 path", dt, check_swa(torch, swa_ops, swa_ref, checks,
+                                           *KIMI_SWA, dt, gen))
+    from repro_torch.kernels import LAUNCHES
+    before = Counter(LAUNCHES)
+    for dh in (32, 96, 120, 256):    # any other head dim raises on the card
+        q, k, v = swa_inputs(torch, 1, 130, 2, 2, dh, torch.bfloat16, gen)
+        try:
+            swa_ops.swa_attention(q, k, v, window=128)
+        except ValueError:
+            continue
+        fail(f"{SWA}: head dim {dh} on the card did not raise")
+    if Counter(LAUNCHES) != before:
+        fail(f"{SWA}: a refused head dim launched {dict(Counter(LAUNCHES) - before)}")
     for n in (8, 16, 32, 64):     # S around the 16-step chunk, and long
         for s in (1, 31, 33, 200, 4096):
             for with_s0 in (True, False):
@@ -1215,8 +1270,10 @@ def check_lm_kernels(torch, checks, gen):
         print(f"{k} == plain version in {checks.n[k]} checks (max abs err "
               f"{checks.err[k]:.3g}, relative {checks.rel[k]:.3g}; fp32 with TF32 "
               f"off, bf16 outputs compared in fp32; tolerances {LM_TOL})")
-    print(f"{SWA} largest errors (grid, and the path's 1 x {SWA_PATH['S']} x 16 "
-          f"heads, window 8192): " + "; ".join(
+    print(f"{SWA} largest errors (grid at head dims {swa_ops.HEAD_DIMS}, the path's "
+          f"1 x {SWA_PATH['S']} x 16 heads and kimi-k2's 1 x {KIMI_SWA[1]} x "
+          f"{KIMI_SWA[2]} heads at Dh {KIMI_SWA[4]}, window 8192; head dims 32, 96, "
+          f"120, 256 refused): " + "; ".join(
               f"{k} max abs {v['max_abs']:.3g}, relative L2 {v['rel_l2']:.3g}"
               for k, v in swa.items())
           + f" (bf16 relative L2 limit {SWA_BF16_REL_L2})")
@@ -1233,27 +1290,20 @@ def rel_l2(torch, got, want, rows=1024) -> float:
     return (num / den) ** 0.5
 
 
-def serve_paths(torch) -> dict:
-    """The serve path at full width in bf16, weights from a seeded
-    ``torch.Generator`` on the card: internlm2-1.8b+swa prefill and
-    full-sequence logits on 16,384 tokens, rwkv6-1.6b prefill on 8 x 4,096,
-    and requests through ``greedy_generate`` for each; launch counters
-    zeroed before each step and read after it.  Held: exact launch counts,
-    finite logits, the kernel path's logits against the plain versions'
-    on the same weights (fp32, relative L2; bf16, each one's distance from
-    the fp32 model), prefill == decode after a short prompt (fp32, full
-    width, relative L2), and the reduced configs on the card against the
-    CPU."""
+def serve_helpers(torch, out):
+    """The serve phases' shared steps, recording into ``out`` ("launches",
+    "steps"): ``step`` (a synchronized, timed call with launch counters
+    zeroed just before it and held to an exact count after it), ``finite``,
+    ``fp32`` (a model's fp32 twin), ``batch_of`` (a batch of tokens, after
+    patch embeddings for a vision config), ``versus_plain`` and
+    ``identity`` (full-model logits gates), ``requests`` (B = 4 greedy requests through
+    ``serve_model.serve``, timed warm and profiled) and ``profile``."""
     import dataclasses
-    from repro_torch.configs import adapt_for_shape, get_config, get_reduced, shape_for
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.kernels.swa_attention.ops import KERNELS
-    from repro_torch.launch.serve import make_decode_step, make_logits_fn, make_prefill_step
-    from repro_torch.models import decode_step, init_decode_state, init_params, prefill
-    from repro_torch.models.transformer import tree_map
+    from repro_torch.models import decode_step, init_decode_state, prefill
+    from repro_torch.models.transformer import load_prefill, tree_map
     from repro_torch.serve_model import serve
 
-    out = {"launches": Counter(), "steps": {}, "models": {}}
 
     def step(name, fn, want, record=True):
         LAUNCHES.clear()
@@ -1279,23 +1329,43 @@ def serve_paths(torch) -> dict:
         return (dataclasses.replace(cfg, param_dtype=torch.float32),
                 tree_map(lambda t: t.float() if t.is_floating_point() else t, params))
 
-    def versus_plain(name, cfg, params, batch, logits_of):
+    def batch_of(cfg, gen, b, s):
+        """(b, s) positions: tokens, after ``n_frontend_tokens`` random patch
+        embeddings for a vision config."""
+        n_front = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s - n_front),
+                                         generator=gen, device="cuda", dtype=torch.int32)}
+        if n_front:
+            batch["frontend_embeds"] = torch.randn((b, n_front, cfg.d_frontend),
+                                                   generator=gen, device="cuda")
+        return batch
+
+    def versus_plain(name, cfg, weights, logits_of, extra=None):
         """The kernel path's logits against the plain versions' on the same
-        weights and batch.  fp32: relative L2 within FP32_REL_L2.  bf16: the
-        kernel path's distance from the fp32 model (the plain versions in
-        fp32) within BF16_DRIFT of the plain versions' own bf16 distance.
-        Comparison runs: launches not counted."""
+        weights: ``weights(c)`` makes them in ``c.param_dtype`` (the same
+        values, up to rounding, in bf16 and fp32), ``logits_of(c, p)`` gives
+        the logits.  fp32: relative L2 within FP32_REL_L2.  bf16: the kernel
+        path's distance from the fp32 model (the plain versions in fp32)
+        within BF16_DRIFT of the plain versions' own bf16 distance.
+        ``extra(c32, p32)`` runs on the fp32 weights and its dict joins the
+        result.  Comparison runs: launches not counted."""
         plain = lambda c, p: logits_of(dataclasses.replace(c, use_kernels=False), p)
         agree = lambda a, b: float((a.argmax(-1) == b.argmax(-1)).float().mean())
-        c32, p32 = fp32(cfg, params)
+        c32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+        p32 = weights(c32)
+        res = {"params": sum(t.numel() for t in _leaves(p32))}
         with torch.inference_mode():
-            ref = plain(c32, p32)
-            got = logits_of(c32, p32)
-            finite(f"{name} fp32", got)
-            res = {"fp32": rel_l2(torch, got, ref), "fp32_argmax_agreement": agree(got, ref)}
-            del got, p32
-            torch.cuda.empty_cache()
-            got, want = logits_of(cfg, params), plain(cfg, params)
+            ref, got = plain(c32, p32), logits_of(c32, p32)
+        finite(f"{name} fp32", got)
+        res.update(fp32=rel_l2(torch, got, ref), fp32_argmax_agreement=agree(got, ref))
+        if extra is not None:
+            res.update(extra(c32, p32))
+        del got, p32
+        torch.cuda.empty_cache()
+        p = weights(cfg)
+        with torch.inference_mode():
+            got, want = logits_of(cfg, p), plain(cfg, p)
+        del p
         finite(f"{name} bf16", got)
         res.update(bf16=rel_l2(torch, got, want), bf16_argmax_agreement=agree(got, want),
                    bf16_kernel_vs_fp32=rel_l2(torch, got, ref),
@@ -1310,40 +1380,58 @@ def serve_paths(torch) -> dict:
         if res["bf16_kernel_vs_fp32"] > res["bf16_limit"]:
             fail(f"{name}: bf16 kernel path's logits are further from the fp32 model "
                  f"than the plain versions' bf16 run: {res}")
-        print(f"{name}: logits of the kernel path vs the plain versions, relative "
-              f"L2 {res['fp32']:.3g} in fp32 (argmax agreement "
+        print(f"{name} ({cfg.n_layers} layers, {res['params'] / 1e9:.2f} B params): "
+              f"logits of the kernel path vs the plain versions, relative L2 "
+              f"{res['fp32']:.3g} in fp32 (argmax agreement "
               f"{res['fp32_argmax_agreement']:.4f}), {res['bf16']:.3g} in bf16 "
               f"({res['bf16_argmax_agreement']:.4f}); bf16 vs the fp32 model: kernel "
               f"path {res['bf16_kernel_vs_fp32']:.4g}, plain versions "
               f"{res['bf16_plain_vs_fp32']:.4g} (limit {res['bf16_limit']:.4g})")
         return res
 
-    def identity(name, cfg, params, gen):
-        """Prefill's last logits == the same prompt fed through decode, in
-        fp32 at full width: relative L2 within FP32_REL_L2, beside the
-        kernel path's distance from the plain versions on the same prompt
-        (the model's own fp32 noise: prefill and decode run their matrix
-        products at other shapes)."""
-        cfg32, p32 = fp32(cfg, params)
-        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device="cuda",
-                             dtype=torch.int32)
+    def identity(name, cfg, params, gen, n=64):
+        """Prefill's last logits == the same ``n``-token prompt fed through
+        decode, in fp32 at full width: relative L2 within FP32_REL_L2,
+        beside the kernel path's distance from the plain versions on the
+        same prompt (the model's own fp32 noise: prefill and decode run
+        their matrix products at other shapes).  An MoE config runs
+        one-token groups, as a decode step's (a prefill's larger groups
+        drop slots past an expert's capacity).  A vision config prefills
+        its patches and the prompt but its last token, loads those states
+        into a decode state (``load_prefill``) and decodes the last token.
+        Returns (result, the decode steps' logits)."""
+        c, p = fp32(cfg, params)
+        if c.moe:
+            c = dataclasses.replace(c, moe_group_size=1)
+        b, n_front = 2, c.n_frontend_tokens if c.frontend == "vision" else 0
+        batch = batch_of(c, gen, b, n_front + n)
+        toks = batch["tokens"]
+        at = lambda t: torch.full((b,), t, dtype=torch.int32, device="cuda")
         with torch.inference_mode():
-            lp, _ = prefill(cfg32, p32, {"tokens": toks})
-            lplain, _ = prefill(dataclasses.replace(cfg32, use_kernels=False), p32,
-                                {"tokens": toks})
-            st = init_decode_state(cfg32, 2, 65, "cuda")
-            for t in range(64):
-                ld, st = decode_step(cfg32, p32, st, toks[:, t],
-                                     torch.full((2,), t, dtype=torch.int32, device="cuda"))
+            lp, _ = prefill(c, p, batch)
+            lplain, _ = prefill(dataclasses.replace(c, use_kernels=False), p, batch)
+            if n_front:
+                _, sh = prefill(c, p, dict(batch, tokens=toks[:, :-1]))
+                st = load_prefill(init_decode_state(dataclasses.replace(c, window=None), b,
+                                                    n_front + n, "cuda"), sh)
+                ld, _ = decode_step(c, p, st, toks[:, -1], at(n_front + n - 1))
+                steps = ld[:, None]
+            else:
+                st, lds = init_decode_state(c, b, n + 1, "cuda"), []
+                for t in range(n):
+                    ld, st = decode_step(c, p, st, toks[:, t], at(t))
+                    lds.append(ld)
+                steps = torch.stack(lds, dim=1)
         res = {"rel_l2": rel_l2(torch, ld[:, None], lp),
                "max_abs": (ld - lp[:, 0]).abs().max().item(),
                "kernel_vs_plain_rel_l2": rel_l2(torch, lp, lplain)}
         if res["rel_l2"] > FP32_REL_L2:
-            fail(f"{name}: prefill != decode after a 64-token prompt (fp32): {res}")
-        print(f"{name}: prefill == decode after a 64-token prompt, fp32, relative L2 "
-              f"{res['rel_l2']:.3g} (max abs {res['max_abs']:.3g}; kernel vs plain "
-              f"prefill {res['kernel_vs_plain_rel_l2']:.3g})")
-        return res
+            fail(f"{name}: prefill != decode after a {n}-token prompt (fp32): {res}")
+        print(f"{name}: prefill == decode after a {n}-token prompt, fp32, full width, "
+              f"{c.n_layers} layers: relative L2 {res['rel_l2']:.3g} (max abs "
+              f"{res['max_abs']:.3g}; kernel vs plain prefill "
+              f"{res['kernel_vs_plain_rel_l2']:.3g})")
+        return res, steps
 
     def requests(name, cfg, params, gen, want):
         b, p, n = REQUESTS["B"], REQUESTS["prompt"], REQUESTS["gen"]
@@ -1367,9 +1455,9 @@ def serve_paths(torch) -> dict:
         return {"decode_tokens_per_s": b * (p + n) / secs, "decode_seconds": secs,
                 "decode_profile": prof, "sample": toks[0, :16].tolist()}
 
-    def profile(name, run):
+    def profile(name, run, compare_readers=False):
         with torch.inference_mode():
-            prof = profile_campaign(torch, run)
+            prof = profile_campaign(torch, run, compare_readers)
         idle = prof["device_idle_share"]
         print(f"{name} profile: {prof['gpu_kernels']} GPU kernels, device busy "
               f"{prof['device_busy_ms']:.1f} of {prof['wall_ms']:.1f} ms (idle share "
@@ -1377,6 +1465,34 @@ def serve_paths(torch) -> dict:
                   f"{k[:40]} {v:.1f}" for k, v in list(prof["top_kernels_ms"].items())[:3]))
         return prof
 
+    return types.SimpleNamespace(step=step, finite=finite, fp32=fp32, batch_of=batch_of,
+                                 versus_plain=versus_plain, identity=identity,
+                                 requests=requests, profile=profile)
+
+
+def serve_paths(torch) -> dict:
+    """The serve path at full width in bf16, weights from a seeded
+    ``torch.Generator`` on the card: internlm2-1.8b+swa prefill and
+    full-sequence logits on 16,384 tokens, rwkv6-1.6b prefill on 8 x 4,096,
+    and requests through ``greedy_generate`` for each; launch counters
+    zeroed before each step and read after it.  Held: exact launch counts,
+    finite logits, the kernel path's logits against the plain versions'
+    on the same weights (fp32, relative L2; bf16, each one's distance from
+    the fp32 model), prefill == decode after a short prompt (fp32, full
+    width, relative L2), and the reduced configs of all ten architectures
+    on the card against the CPU."""
+    import dataclasses
+    from repro_torch.configs import (ARCH_IDS, adapt_for_shape, get_config, get_reduced,
+                                     shape_for)
+    from repro_torch.kernels.swa_attention.ops import KERNELS
+    from repro_torch.launch.serve import make_decode_step, make_logits_fn, make_prefill_step
+    from repro_torch.models import init_decode_state, init_params
+    from repro_torch.models.transformer import tree_map
+
+    out = {"launches": Counter(), "steps": {}, "models": {}}
+    h = serve_helpers(torch, out)
+    step, finite, fp32, versus_plain, identity, requests, profile = (
+        h.step, h.finite, h.fp32, h.versus_plain, h.identity, h.requests, h.profile)
     gen = torch.Generator(device="cuda").manual_seed(0)
     # internlm2-1.8b with the repo's sliding-window adaptation (long_500k)
     cfg = dataclasses.replace(adapt_for_shape(get_config("internlm2-1.8b"),
@@ -1395,7 +1511,8 @@ def serve_paths(torch) -> dict:
                     record=False)
     finite("internlm2 prefill", lp)
     print(f"{cfg.arch_id} prefill: {b * s / t_pre:.0f} tokens/s (warm)")
-    prof_pre = profile(f"{cfg.arch_id} prefill", lambda: pre(params, batch))
+    prof_pre = profile(f"{cfg.arch_id} prefill", lambda: pre(params, batch),
+                       compare_readers=True)
     if lp.shape != (b, 1, cfg.vocab_size) or states["stack"]["sub0"]["k"].shape != \
             (24, b, s, cfg.n_kv_heads, cfg.head_dim):
         fail(f"internlm2 prefill: shapes {tuple(lp.shape)}")
@@ -1409,14 +1526,15 @@ def serve_paths(torch) -> dict:
              f"{rel_last:.3g} (limit {LOGIT_REL_L2})")
     del la, lp
     torch.cuda.empty_cache()
-    vs = versus_plain("internlm2", cfg, params, batch,
+    vs = versus_plain("internlm2", cfg, lambda c: fp32(c, params)[1] if
+                      c.param_dtype == torch.float32 else params,
                       lambda c, p: make_logits_fn(c)(p, batch))
     out["models"][cfg.arch_id] = {
         "params": n_params, "prefill_shape": [b, s],
         "prefill_seconds": t_pre, "prefill_tokens_per_s": b * s / t_pre,
         "prefill_profile": prof_pre, "prefill_vs_logits_rel_l2": rel_last,
         "logits_vs_plain_rel_l2": vs,
-        "prefill_eq_decode": identity("internlm2", cfg, params, gen),
+        "prefill_eq_decode": identity("internlm2", cfg, params, gen)[0],
         **requests(cfg.arch_id, cfg, params, gen, {})}
     del params
     torch.cuda.empty_cache()
@@ -1436,31 +1554,39 @@ def serve_paths(torch) -> dict:
     print(f"{cfg.arch_id} prefill: {b * s / t_pre:.0f} tokens/s (warm)")
     prof_pre = profile(f"{cfg.arch_id} prefill", lambda: pre(params, batch))
     short = {"tokens": batch["tokens"][:, :WKV_PLAIN_S]}
-    vs = versus_plain("rwkv6", cfg, params, short,
+    vs = versus_plain("rwkv6", cfg, lambda c: fp32(c, params)[1] if
+                      c.param_dtype == torch.float32 else params,
                       lambda c, p: make_prefill_step(c)(p, short)[0])
     out["models"][cfg.arch_id] = {
         "params": n_params, "prefill_shape": [b, s],
         "prefill_seconds": t_pre, "prefill_tokens_per_s": b * s / t_pre,
         "prefill_profile": prof_pre,
         "logits_vs_plain_rel_l2": dict(vs, shape=[b, WKV_PLAIN_S]),
-        "prefill_eq_decode": identity("rwkv6", cfg, params, gen),
+        "prefill_eq_decode": identity("rwkv6", cfg, params, gen)[0],
         **requests(cfg.arch_id, cfg, params, gen,
                    {WKV: 24 * (REQUESTS["prompt"] + REQUESTS["gen"])})}
     del params
     torch.cuda.empty_cache()
 
-    # the reduced configs in fp32: the card against the CPU
+    # the reduced configs of all ten architectures in fp32, a 128-token
+    # window wherever there is attention: the card against the CPU
     out["reduced_gpu_vs_cpu_max_abs"] = {}
-    for arch, over in (("internlm2-1.8b", dict(window=128)), ("rwkv6-1.6b", {})):
-        cfg = dataclasses.replace(get_reduced(arch), param_dtype=torch.float32,
-                                  use_kernels=True, **over)
+    for arch in ARCH_IDS:
+        cfg = get_reduced(arch)
+        over = dict(window=128) if "attn" in cfg.block_pattern else {}
+        cfg = dataclasses.replace(cfg, param_dtype=torch.float32, use_kernels=True, **over)
         p_cpu = init_params(cfg, torch.Generator().manual_seed(0))
-        toks = torch.randint(0, cfg.vocab_size, (2, 200),
-                             generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+        cpu_gen = torch.Generator().manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 200), generator=cpu_gen,
+                                         dtype=torch.int32)}
+        if cfg.frontend == "vision":
+            batch["frontend_embeds"] = torch.randn(
+                (2, cfg.n_frontend_tokens, cfg.d_frontend), generator=cpu_gen)
+        toks = batch["tokens"]
         res = {}
         for dev in ("cpu", "cuda"):
             p = tree_map(lambda t: t.to(dev), p_cpu)
-            bt = {"tokens": toks.to(dev)}
+            bt = {k: v.to(dev) for k, v in batch.items()}
             lp, st = make_prefill_step(cfg)(p, bt)
             la = make_logits_fn(cfg)(p, bt)
             state, dec = init_decode_state(cfg, 2, 9, dev), make_decode_step(cfg)
@@ -1477,8 +1603,169 @@ def serve_paths(torch) -> dict:
             if not torch.allclose(g.float(), c.float(), rtol=1e-3, atol=1e-4):
                 fail(f"reduced {arch}: the card differs from the CPU by {err}")
         out["reduced_gpu_vs_cpu_max_abs"][arch] = err
-    print(f"reduced configs, fp32, card == CPU (prefill, logits, 8 decode steps, "
-          f"states): max abs diff {out['reduced_gpu_vs_cpu_max_abs']}")
+    print(f"reduced configs of all {len(ARCH_IDS)} architectures, fp32, card == CPU "
+          f"(prefill, logits, 8 decode steps, states): max abs diff "
+          f"{out['reduced_gpu_vs_cpu_max_abs']}")
+    return out
+
+
+def arch_paths(torch) -> dict:
+    """The zoo's other eight architectures served at full width in bf16
+    with ``use_kernels=True`` under ``adapt_for_shape(..., long_500k)``
+    (window 8192), one model at a time, weights from a seeded
+    ``torch.Generator`` on the card, depth cut only where the card cannot
+    hold the weights (``ARCH_PATHS``).  Each: a prefill of 1 x 16,384
+    tokens (internvl2: 256 random patch embeddings + 16,128 tokens), cold
+    and warm, profiled, with exactly ``ARCH_PATHS``' kernel 8 launches, all
+    on the tensor-core kernel; B = 4 requests through ``serve`` (deepseek's
+    absorbed and naive).  Then at ``ARCH_PLAIN_CUT``'s depth, full
+    width, the kernel path's logits of the last ``ARCH_LOGIT_ROWS``
+    positions against the plain versions' on the same seeded weights:
+    fp32 (relative L2 <= FP32_REL_L2) and bf16 (no further from the fp32
+    model than BF16_DRIFT allows); on those fp32 weights, prefill == decode after a 64-token prompt for MLA naive and absorbed,
+    Mamba and the vision prefix, and absorbed == naive decode."""
+    import dataclasses
+    from repro_torch.configs import SWA_WINDOW, adapt_for_shape, get_config, shape_for
+    from repro_torch.kernels.swa_attention.ops import KERNELS
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.transformer import _logits
+
+    out = {"launches": Counter(), "steps": {}, "models": {}}
+    h = serve_helpers(torch, out)
+    t_phase = time.perf_counter()
+
+    def gqa_layers(cfg):
+        prefix, specs, n_rep = cfg.segment_plan()
+        if cfg.attn_type != "gqa":
+            return 0
+        return (sum(m == "attn" for m, _ in prefix)
+                + n_rep * sum(m == "attn" for m, _ in specs))
+
+    def identities(arch, c, p):
+        """The new mixers' prefill == decode on fp32 weights at full width."""
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        if c.attn_type == "mla":
+            naive, steps_n = h.identity(f"{arch} MLA naive", dataclasses.replace(
+                c, mla_absorb=False), p, torch.Generator(device="cuda").manual_seed(7))
+            absorbed, steps_a = h.identity(f"{arch} MLA absorbed", dataclasses.replace(
+                c, mla_absorb=True), p, torch.Generator(device="cuda").manual_seed(7))
+            gap = {"rel_l2": rel_l2(torch, steps_a, steps_n),
+                   "max_abs": (steps_a - steps_n).abs().max().item()}
+            if not torch.allclose(steps_a, steps_n, rtol=MLA_ABSORB_TOL, atol=MLA_ABSORB_TOL):
+                fail(f"{arch}: absorbed MLA decode differs from naive: {gap}")
+            print(f"{arch}: absorbed == naive MLA decode over 64 steps, fp32, relative L2 "
+                  f"{gap['rel_l2']:.3g}, max abs {gap['max_abs']:.3g} (rtol = atol "
+                  f"{MLA_ABSORB_TOL})")
+            return {"prefill_eq_decode": {"naive": naive, "absorbed": absorbed},
+                    "absorbed_vs_naive": gap}
+        if "mamba" in c.block_pattern:
+            return {"prefill_eq_decode": h.identity(f"{arch} Mamba", c, p, gen)[0]}
+        if c.frontend == "vision":
+            return {"prefill_eq_decode": h.identity(f"{arch} vision prefix", c, p, gen)[0]}
+        return {}
+
+    def plain_share(cfg, params, t_pre):
+        """The share of the warm prefill that the parts with no kernel take,
+        by events at the prefill's shape: Mamba's scan (its fp32 inputs
+        drawn at random) over the Mamba layers, MLA's blocked attention
+        over the MLA layers; None for the other configs."""
+        from repro_torch.models import attention as attn
+        from repro_torch.models import mamba as mb
+        prefix, specs, n_rep = cfg.segment_plan()
+        count = lambda m: sum(x == m for x, _ in prefix) + n_rep * sum(x == m for x, _ in specs)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        with torch.inference_mode():
+            if "mamba" in cfg.block_pattern:
+                d_inner, n = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+                i = [m for m, _ in specs].index("mamba")
+                A = -torch.exp(params["stack"][f"sub{i}"]["mixer"]["A_log"][0])
+                x = torch.randn((1, ARCH_S, d_inner), generator=g, device="cuda")
+                dt = torch.nn.functional.softplus(torch.randn(
+                    (1, ARCH_S, d_inner), generator=g, device="cuda") - 4)
+                bm, cm = (torch.randn((1, ARCH_S, n), generator=g, device="cuda")
+                          for _ in range(2))
+                h0 = torch.zeros((1, d_inner, n), device="cuda")
+                part, layers = "Mamba scan", count("mamba")
+                ms = time_ms(torch, lambda: mb._scan(x, dt, bm, cm, A, h0), 2, warmup=1)
+            elif cfg.attn_type == "mla":
+                mk = lambda d: torch.randn((1, ARCH_S, cfg.n_heads, d), generator=g,
+                                           device="cuda").to(cfg.param_dtype)
+                dk = cfg.qk_nope_dim + cfg.qk_rope_dim
+                q, k, v = mk(dk)[:, :, :, None], mk(dk), mk(cfg.v_head_dim)
+                pos = torch.arange(ARCH_S, device="cuda", dtype=torch.int32)[None]
+                part, layers = "MLA blocked attention", count("attn")
+                ms = time_ms(torch, lambda: attn.blocked_attention(
+                    q, k, v, pos, pos, window=cfg.window, softmax_scale=dk ** -0.5), 2,
+                    warmup=1)
+            else:
+                return None
+        res = {"part": part, "ms_a_layer": ms, "layers": layers,
+               "share": layers * ms / (t_pre * 1e3)}
+        print(f"{cfg.arch_id}: {part} {ms:.1f} ms a layer (events, 1 x {ARCH_S}), "
+              f"x {layers} layers = {res['share']:.3f} of the warm prefill")
+        return res
+
+    for i, (arch, (layers, want_launches)) in enumerate(ARCH_PATHS.items()):
+        t_model = time.perf_counter()
+        cfg = adapt_for_shape(get_config(arch), shape_for("long_500k"))
+        full_layers = cfg.n_layers
+        cfg = dataclasses.replace(cfg, use_kernels=True, n_layers=layers or full_layers)
+        if cfg.window != SWA_WINDOW or not cfg.arch_id.endswith("+swa"):
+            fail(f"{arch}: unexpected config {cfg.arch_id} window {cfg.window}")
+        if gqa_layers(cfg) != want_launches:
+            fail(f"{arch}: {gqa_layers(cfg)} GQA layers, the table says {want_launches}")
+        seed = 100 + i
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = init_params(cfg, gen)
+        n_params = sum(t.numel() for t in _leaves(params))
+        batch = h.batch_of(cfg, gen, 1, ARCH_S)
+        pre = make_prefill_step(cfg)
+        want = ({SWA: want_launches, KERNELS[torch.bfloat16]: want_launches}
+                if want_launches else {})
+        cut = "" if cfg.n_layers == full_layers else \
+            f", depth cut to {cfg.n_layers} of {full_layers} layers"
+        print(f"{cfg.arch_id}: {n_params / 1e9:.2f} B params ({2 * n_params / 1e9:.1f} GB "
+              f"bf16){cut}; Dh {cfg.head_dim if cfg.attn_type == 'gqa' else 'MLA'}")
+        (lp, states), t_cold = h.step(f"{cfg.arch_id} prefill", lambda: pre(params, batch), want)
+        del states
+        _, t_pre = h.step(f"{cfg.arch_id} prefill (warm)", lambda: pre(params, batch), want,
+                          record=False)
+        h.finite(f"{arch} prefill", lp)
+        if lp.shape != (1, 1, cfg.vocab_size):
+            fail(f"{arch} prefill: logits {tuple(lp.shape)}")
+        del lp
+        print(f"{cfg.arch_id} prefill: {ARCH_S / t_pre:.0f} tokens/s (warm)")
+        prof = h.profile(f"{cfg.arch_id} prefill", lambda: pre(params, batch))
+        share = plain_share(cfg, params, t_pre)
+        res = {"params": n_params, "layers": cfg.n_layers, "layers_published": full_layers,
+               "prefill_shape": [1, ARCH_S], "kernel8_launches": want_launches,
+               "prefill_seconds": t_pre, "prefill_cold_seconds": t_cold,
+               "prefill_tokens_per_s": ARCH_S / t_pre, "prefill_profile": prof,
+               "plain_part_share": share,
+               **h.requests(cfg.arch_id, cfg, params, gen, {})}
+        if cfg.attn_type == "mla":
+            naive = dataclasses.replace(cfg, mla_absorb=not cfg.mla_absorb)
+            res["requests_" + ("naive" if cfg.mla_absorb else "absorbed")] = h.requests(
+                f"{cfg.arch_id} ({'naive' if cfg.mla_absorb else 'absorbed'} MLA)",
+                naive, params, gen, {})
+        del params
+        torch.cuda.empty_cache()
+        # the kernel path against the plain versions at ARCH_PLAIN_CUT's
+        # depth, each run on weights drawn anew from the model's seed (an
+        # fp32 draw cast to bf16 is the bf16 draw), on the last rows' logits
+        rows = lambda c, p: _logits(c, p, forward(c, p, batch)[0][:, -ARCH_LOGIT_ROWS:]
+                                    )[..., :c.vocab_size]     # not the padded rows' -1e30
+        res["logits_vs_plain"] = dict(h.versus_plain(
+            arch, dataclasses.replace(cfg, **ARCH_PLAIN_CUT.get(arch, dict(n_layers=2))),
+            lambda c: init_params(c, torch.Generator(device="cuda").manual_seed(seed)),
+            rows, extra=lambda c, p: identities(arch, c, p)),
+            cut=ARCH_PLAIN_CUT.get(arch, dict(n_layers=2)), rows=ARCH_LOGIT_ROWS)
+        res["seconds"] = time.perf_counter() - t_model
+        out["models"][cfg.arch_id] = res
+        print(f"{cfg.arch_id}: {res['seconds']:.1f}s")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"architectures phase: {out['seconds']:.1f}s")
     return out
 
 
@@ -1490,20 +1777,13 @@ def _leaves(tree):
     return [tree]
 
 
-def time_lm_kernels(torch, gen) -> dict:
-    """Kernels 8 and 9 at the serve path's shapes: events (plain, kernel,
-    kernel, plain) and CUDA-graph device time of the kernel, events of the
-    plain version (one call of it runs for hundreds of milliseconds: no
-    graph), and for attention the one PyTorch call that computes the same
-    function (``scaled_dot_product_attention`` with a boolean band mask and
-    ``enable_gqa``), timed here only, beside each bound."""
-    from repro_torch.kernels.swa_attention import ops as swa_ops
-    from repro_torch.kernels.swa_attention import ref as swa_ref
-    from repro_torch.kernels.wkv6 import ops as wkv_ops
-    from repro_torch.kernels.wkv6 import ref as wkv_ref
+def time_swa(torch, swa_ops, swa_ref, gen, b, s, h, hkv, dh, window) -> dict:
+    """Kernel 8 in bf16 at one shape: the kernel (events in turns with the
+    plain version; CUDA-graph device time), the plain version, and
+    ``scaled_dot_product_attention`` with a boolean band mask and
+    ``enable_gqa`` (timed here only), beside the bound of the work at the
+    real head dim."""
     import torch.nn.functional as F
-    res = {}
-    b, s, h, hkv, dh, window = SWA_PATH["B"], SWA_PATH["S"], 16, 8, 128, 8192
     q, k, v = swa_inputs(torch, b, s, h, hkv, dh, torch.bfloat16, gen)
     kern = lambda: swa_ops.swa_attention(q, k, v, window=window)
     plain = lambda: swa_ref.swa_attention_ref(q, k, v, window=window)
@@ -1518,16 +1798,42 @@ def time_lm_kernels(torch, gen) -> dict:
     l1, l2 = time_ms(torch, lib, 3, warmup=1), time_ms(torch, lib, 3, warmup=0)
     nbytes, flops = swa_cost(b, s, h, hkv, dh, window, 2)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    res[SWA] = {"shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "Dh": dh, "window": window,
-                          "dtype": "bf16"},
-                "ms": min(k1, k2), "ms_runs": [k1, k2], "device_ms": graph_ms(torch, kern, 10),
-                "plain_ms": min(pr1, pr2), "plain_ms_runs": [pr1, pr2],
-                "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
-                "library_max_abs_diff": lib_err, "bytes": nbytes, "flops": flops,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    res = {"shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "Dh": dh, "window": window,
+                     "dtype": "bf16"},
+           "ms": min(k1, k2), "ms_runs": [k1, k2], "device_ms": graph_ms(torch, kern, 10),
+           "plain_ms": min(pr1, pr2), "plain_ms_runs": [pr1, pr2],
+           "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
+           "library_max_abs_diff": lib_err, "bytes": nbytes, "flops": flops,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     del q, k, v, qh, kh, vh, band
     torch.cuda.empty_cache()
+    return res
+
+
+def time_lm_kernels(torch, gen) -> dict:
+    """Kernels 8 and 9 at the serve path's shapes: events (plain, kernel,
+    kernel, plain) and CUDA-graph device time of the kernel, events of the
+    plain version (one call of it runs for hundreds of milliseconds: no
+    graph), and for attention the one PyTorch call that computes the same
+    function (``scaled_dot_product_attention`` with a boolean band mask and
+    ``enable_gqa``), timed here only, beside each bound; attention also at
+    kimi-k2's shape (Dh 112)."""
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+    from repro_torch.kernels.swa_attention import ref as swa_ref
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+    res = {SWA: time_swa(torch, swa_ops, swa_ref, gen, SWA_PATH["B"], SWA_PATH["S"], 16,
+                         8, 128, 8192)}
+    # kimi-k2's attention: Dh 112 computed on the 128-wide kernel
+    res[SWA]["kimi-k2 Dh 112"] = kimi = time_swa(torch, swa_ops, swa_ref, gen, *KIMI_SWA)
+    kimi["tflop_s"] = kimi["flops"] / kimi["device_ms"] / 1e9
+    kimi["bound_share"] = kimi["bound_ms"] / kimi["device_ms"]
+    print(f"{SWA} kimi-k2 {kimi['shape']}: kernel {kimi['ms']:.4f} ms (device "
+          f"{kimi['device_ms']:.4f}), plain {kimi['plain_ms']:.4f} ms, library "
+          f"{kimi['library_ms']:.4f} ms, bound {kimi['bound_ms']:.6f} ms "
+          f"({kimi['bound_by']}); {kimi['tflop_s']:.1f} TFLOP/s of the 112-wide work, "
+          f"{kimi['bound_share']:.3f} of the bound")
     b, s, h, n = WKV_PATH["B"], WKV_PATH["S"], 32, 64
     r, k, v, w, u, _ = wkv_inputs(torch, b, s, h, n, torch.bfloat16, False, gen)
     kern = lambda: wkv_ops.wkv6(r, k, v, w, u)
@@ -1566,12 +1872,13 @@ def time_lm_kernels(torch, gen) -> dict:
     return res
 
 
-def profile_campaign(torch, run) -> dict:
+def profile_campaign(torch, run, compare_readers=False) -> dict:
     """Device busy share, host span times and the top GPU kernels of one
     warm campaign, from a ``torch.profiler`` trace.  Busy time is the sum
     of GPU kernel and copy times over the wall time of the synchronized
     run; the pipeline's ``round.*`` spans are host ranges (their device-
-    side mirrors are not work and are left out)."""
+    side mirrors are not work and are left out).  ``compare_readers``
+    also reads the trace through ``prof.events()`` and records both."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1579,19 +1886,65 @@ def profile_campaign(torch, run) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_name, n_kernels = Counter(), Counter(), 0
-    for e in prof.events():
-        if e.name.startswith("round."):
-            if e.device_type.name == "CPU":
-                spans[e.name] += e.cpu_time_total / 1e3
-        elif e.device_type.name == "CUDA":
-            by_name[e.name] += e.device_time_total / 1e3
-            n_kernels += 1
+    # the trace's raw events: ``prof.events()`` builds a tree of every
+    # event first, ~0.1 ms each in Python, minutes for a prefill of 10^5
+    # kernels
+    spans, by_name, counts = trace_sums(prof, raw=True)
+    n_kernels = sum(counts.values())
     busy_ms = sum(by_name.values())
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms if n_kernels else None,
-            "gpu_kernels": n_kernels, "host_spans_ms": dict(spans),
-            "top_kernels_ms": dict(by_name.most_common(8))}
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms if n_kernels else None,
+           "gpu_kernels": n_kernels, "host_spans_ms": dict(spans),
+           "top_kernels_ms": dict(by_name.most_common(8))}
+    if compare_readers:
+        res["readers"] = compare_trace_readers(prof, spans, by_name, counts)
+    return res
+
+
+def trace_sums(prof, raw):
+    """(host ``round.*`` span ms, GPU ms by name, GPU events by name) of a
+    trace, read from its raw events (``raw``) or from ``prof.events()``."""
+    spans, by_name, counts = Counter(), Counter(), Counter()
+    if raw:
+        events = ((e.name(), e.device_type().name, e.duration_ns() / 1e6,
+                   e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events())
+    else:
+        events = ((e.name, e.device_type.name, e.cpu_time_total / 1e3,
+                   e.device_time_total / 1e3) for e in prof.events())
+    for name, dev, cpu_ms, dev_ms in events:
+        if name.startswith("round."):
+            if dev == "CPU":
+                spans[name] += cpu_ms
+        elif dev == "CUDA":
+            by_name[name] += dev_ms
+            counts[name] += 1
+    return spans, by_name, counts
+
+
+def compare_trace_readers(prof, spans, by_name, counts) -> dict:
+    """The raw-event reader against ``prof.events()`` on one trace: GPU
+    events, busy ms and span ms by each, and the events by name that one
+    counts and the other does not.  Held: the same events by name, and ms
+    by name and by span within 1e-6."""
+    spans2, by_name2, counts2 = trace_sums(prof, raw=False)
+    res = {"raw": {"gpu_kernels": sum(counts.values()), "device_busy_ms": sum(by_name.values()),
+                   "host_spans_ms": dict(spans)},
+           "events": {"gpu_kernels": sum(counts2.values()),
+                      "device_busy_ms": sum(by_name2.values()),
+                      "host_spans_ms": dict(spans2)},
+           "only_raw": dict(counts - counts2), "only_events": dict(counts2 - counts),
+           "max_abs_ms_by_name": max((abs(by_name[k] - by_name2[k])
+                                      for k in by_name | by_name2), default=0.0)}
+    print(f"  trace readers on one trace: raw events {res['raw']['gpu_kernels']} GPU "
+          f"events, busy {res['raw']['device_busy_ms']:.4f} ms; prof.events() "
+          f"{res['events']['gpu_kernels']}, busy {res['events']['device_busy_ms']:.4f} ms; "
+          f"largest gap by name {res['max_abs_ms_by_name']:.3g} ms; only raw "
+          f"{res['only_raw']}; only prof.events() {res['only_events']}; spans raw "
+          f"{spans} vs {spans2}")
+    span_gap = max((abs(spans[k] - spans2[k]) for k in spans | spans2), default=0.0)
+    if counts != counts2 or res["max_abs_ms_by_name"] > 1e-6 or span_gap > 1e-6:
+        fail(f"the trace readers disagree: {res}")
+    return res
 
 
 def record_bits(rec):
@@ -3376,9 +3729,10 @@ def main():
         kernel times (many traces in a process broke a later profiler
         read).  The busy time is also set against the unprofiled run's
         wall: the profiler's host cost inflates a graphed run's wall most."""
-        for name, (kw, eager) in timed.items():
+        for i, (name, (kw, eager)) in enumerate(timed.items()):
             prof = profile_campaign(torch, lambda: drive(
-                Simulator(SimConfig(**kw), device="cuda"), eager)[0])
+                Simulator(SimConfig(**kw), device="cuda"), eager)[0],
+                compare_readers=i == 0)
             camp = report["campaigns"][name]
             prof["busy_share_of_unprofiled_wall"] = (
                 prof["device_busy_ms"] / (camp["seconds"] * 1e3))
@@ -3504,6 +3858,11 @@ def main():
     launches.update(serve.pop("launches"))
     report["serve"] = serve
     lap("serve path")
+    # --- the other eight architectures at full width --------------------
+    arch = arch_paths(torch)
+    launches.update(arch.pop("launches"))
+    report["architectures"] = arch
+    lap("architectures")
 
     # --- 5. kernel times ------------------------------------------------
     times = {}

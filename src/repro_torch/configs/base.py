@@ -1,8 +1,6 @@
-"""Config registry and the four input shapes (``repro.configs.base``).
-
-Only the dense GQA transformer and RWKV6 families are ported; the other
-architecture ids of the reference raise ``NotImplementedError`` naming the
-ROADMAP item that ports their layers (MoE, MLA, Mamba, the vision frontend).
+"""Config registry and the four input shapes (``repro.configs.base``):
+all ten architectures of the reference's zoo, each a module exporting
+``CONFIG`` and ``REDUCED``; an unknown id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -21,8 +19,6 @@ ARCH_IDS = (
     "kimi_k2_1t_a32b",
     "musicgen_medium",
 )
-# the architectures whose modules exist in this package
-PORTED = ("internlm2_1_8b", "rwkv6_1_6b")
 
 # canonical external ids (hyphenated) -> module names
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
@@ -39,10 +35,6 @@ def _module(arch_id: str):
     name = ALIASES.get(arch_id, arch_id)
     if name not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch_id!r}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"architecture {arch_id!r} is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1 item 13)")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

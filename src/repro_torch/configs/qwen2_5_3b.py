@@ -1,0 +1,14 @@
+"""qwen2.5-3b [dense] — GQA (kv=2), QKV bias. [hf:Qwen/Qwen2.5-0.5B family card]"""
+from repro_torch.models import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="qwen2.5-3b", family="dense", source="hf:Qwen/Qwen2.5-0.5B",
+    n_layers=36, d_model=2048, n_heads=16, n_kv_heads=2,
+    d_ff=11008, vocab_size=151936, qkv_bias=True, rope_theta=1e6,
+)
+
+REDUCED = ModelConfig(
+    arch_id="qwen2.5-3b-reduced", family="dense", source=CONFIG.source,
+    n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+    d_ff=512, vocab_size=512, qkv_bias=True,
+)

@@ -71,6 +71,16 @@
 //
 // Both read the model's (B, S, H, Dh) and the kernel's (B*H, S, Dh) layouts
 // in place, through strides.
+//
+// Head dims 64, 112 and 128.  Each kernel is compiled for a tile width DH of
+// 64 or 128 and takes the real head dim dh <= DH at run time: dh = 112
+// (kimi-k2: d_model 7168 over 64 heads) computes at 128 and keeps 112.  The
+// bf16 kernel's TMA maps declare an inner extent of dh, so the second
+// 64-column box zero-fills columns 112-127 of Q, K and V: Q K^T over those
+// zeros is exact, and P V's columns 112-127 come out zero and are not
+// stored (in the model's layout those addresses are the next head's).  The
+// fp32 kernel zero-fills its shared tiles past dh and masks its store the
+// same way.  The scale is dh^-1/2.
 
 #include <cuda.h>          // CUtensorMap and its enums; no libcuda call is linked
 #include <cuda_bf16.h>
@@ -108,7 +118,7 @@ constexpr int smem_floats() {
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 swa_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-        float* __restrict__ o, int S, int H, int G, int window, float scale,
+        float* __restrict__ o, int S, int H, int G, int window, int dh, float scale,
         Layout ql, Layout kvl, Layout ol) {
   constexpr int C = DH / 32;              // output columns per lane
   constexpr int KP = DH + 4;              // padded K row
@@ -126,8 +136,8 @@ swa_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* _
   float* ob = o + b * ol.b + h * ol.h;
 
   for (int e = threadIdx.x; e < kQTile * DH; e += kThreads) {
-    const int i = q0 + e / DH;
-    qs[e] = i < S ? qb[i * ql.s + e % DH] : 0.f;
+    const int i = q0 + e / DH, d = e % DH;
+    qs[e] = i < S && d < dh ? qb[i * ql.s + d] : 0.f;
   }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -149,7 +159,7 @@ swa_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* _
     __syncthreads();                      // the previous tile is consumed
     for (int e = threadIdx.x; e < kKTile * DH; e += kThreads) {
       const int jj = e / DH, d = e % DH, j = t0 + jj;
-      const bool in = j < k_hi;
+      const bool in = j < k_hi && d < dh;
       ks[jj * KP + d] = in ? kb[j * kvl.s + d] : 0.f;
       vs[e] = in ? vb[j * kvl.s + d] : 0.f;
     }
@@ -221,13 +231,13 @@ swa_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* _
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      ob[i * ol.s + lane * C + c] = acc[r][c] / den;
+      if (lane * C + c < dh) ob[i * ol.s + lane * C + c] = acc[r][c] / den;
   }
 }
 
 template <int DH>
 int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int Hkv, int window, Layout ql, Layout kvl, Layout ol,
+           int H, int Hkv, int window, int dh, Layout ql, Layout kvl, Layout ol,
            cudaStream_t st) {
   constexpr int bytes = smem_floats<DH>() * 4;
   auto kern = swa_fwd<DH>;
@@ -239,8 +249,8 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int
   const dim3 grid((S + kQTile - 1) / kQTile, B * H);
   kern<<<grid, kThreads, bytes, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, H / Hkv, window,
-      (float)(1.0 / sqrt((double)DH)), ql, kvl, ol);
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, H / Hkv, window, dh,
+      (float)(1.0 / sqrt((double)dh)), ql, kvl, ol);
   return (int)cudaGetLastError();
 }
 
@@ -430,7 +440,7 @@ template <int DH>
 __global__ void __launch_bounds__(kThreadsTC, 1)
 swa_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
-          int H, int G, int window, float scale_log2, Layout ol) {
+          int H, int G, int window, int dh, float scale_log2, Layout ol) {
   using C = TC<DH>;
   constexpr int kSteps = kTile / 16;      // 16-key steps of P V
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -601,6 +611,7 @@ swa_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
     __nv_bfloat16* ob = o + b * ol.b + h * ol.h + col;
 #pragma unroll
     for (int n = 0; n < DH / 8; ++n) {
+      if (8 * n >= dh) break;             // dh is a multiple of 8: whole groups
       if (row_a < S)
         *reinterpret_cast<__nv_bfloat162*>(ob + row_a * ol.s + 8 * n) =
             __floats2bfloat162_rn(acc[4 * n] / den_a, acc[4 * n + 1] / den_a);
@@ -651,20 +662,21 @@ int tensor_map(CUtensorMap* map, const void* ptr, int dh, int S, int heads, int 
 
 template <int DH>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                int Hkv, int window, Layout ql, Layout kvl, Layout ol, cudaStream_t st) {
-  CUtensorMap tq, tk, tv;
-  int err = tensor_map(&tq, q, DH, S, H, B, ql);
-  if (!err) err = tensor_map(&tk, k, DH, S, Hkv, B, kvl);
-  if (!err) err = tensor_map(&tv, v, DH, S, Hkv, B, kvl);
+                int Hkv, int window, int dh, Layout ql, Layout kvl, Layout ol,
+                cudaStream_t st) {
+  CUtensorMap tq, tk, tv;           // inner extent dh: columns dh..DH-1 zero-fill
+  int err = tensor_map(&tq, q, dh, S, H, B, ql);
+  if (!err) err = tensor_map(&tk, k, dh, S, Hkv, B, kvl);
+  if (!err) err = tensor_map(&tv, v, dh, S, Hkv, B, kvl);
   if (err) return err;
   auto kern = swa_wgmma<DH>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TC<DH>::kSmem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (S + kTile - 1) / kTile);
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)DH));
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)dh));
   kern<<<grid, kThreadsTC, TC<DH>::kSmem, st>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), S,
-                                                 H, H / Hkv, window, scale_log2, ol);
+                                                 H, H / Hkv, window, dh, scale_log2, ol);
   return (int)cudaGetLastError();
 }
 
@@ -672,8 +684,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 
 // o = sliding-window attention of q against k, v.  dtype: 0 fp32 (the
 // CUDA-core kernel), 1 bf16 (the tensor-core kernel), q, k, v and o alike;
-// dh: 64 or 128.  q, o index (b, s, h, d) at b*_sb + s*_ss + h*_sh + d; k, v
-// (b, s, kv head, d) likewise with the kv strides (bf16: multiples of 8
+// dh: 64, 112 (computed at 128) or 128.  q, o index (b, s, h, d) at
+// b*_sb + s*_ss + h*_sh + d; k, v (b, s, kv head, d) likewise with the kv strides (bf16: multiples of 8
 // elements, 16-byte aligned pointers, as TMA needs).  Returns the CUDA
 // error of the launch (0: launched), -1 for an unsupported dtype / dh, -2
 // if the driver has no cuTensorMapEncodeTiled, -3 if it refused a map.
@@ -687,12 +699,12 @@ extern "C" int swa_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Layout ql{q_sb, q_ss, q_sh}, kvl{kv_sb, kv_ss, kv_sh}, ol{o_sb, o_ss, o_sh};
   if (dtype == 0 && dh == 64)
-    return launch_fp32<64>(q, k, v, o, B, S, H, Hkv, window, ql, kvl, ol, st);
-  if (dtype == 0 && dh == 128)
-    return launch_fp32<128>(q, k, v, o, B, S, H, Hkv, window, ql, kvl, ol, st);
+    return launch_fp32<64>(q, k, v, o, B, S, H, Hkv, window, dh, ql, kvl, ol, st);
+  if (dtype == 0 && (dh == 112 || dh == 128))
+    return launch_fp32<128>(q, k, v, o, B, S, H, Hkv, window, dh, ql, kvl, ol, st);
   if (dtype == 1 && dh == 64)
-    return launch_bf16<64>(q, k, v, o, B, S, H, Hkv, window, ql, kvl, ol, st);
-  if (dtype == 1 && dh == 128)
-    return launch_bf16<128>(q, k, v, o, B, S, H, Hkv, window, ql, kvl, ol, st);
+    return launch_bf16<64>(q, k, v, o, B, S, H, Hkv, window, dh, ql, kvl, ol, st);
+  if (dtype == 1 && (dh == 112 || dh == 128))
+    return launch_bf16<128>(q, k, v, o, B, S, H, Hkv, window, dh, ql, kvl, ol, st);
   return -1;
 }

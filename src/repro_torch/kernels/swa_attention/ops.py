@@ -5,7 +5,8 @@ transformer's prefill calls it), ``swa_attention_bhsd`` the TPU kernel's
 (B*H, S, Dh).  Both launch the same CUDA source (``csrc/swa_attention.cu``):
 bf16 operands take its tensor-core kernel (wgmma, TMA), fp32 operands its
 CUDA-core kernel.  Either reads both layouts in place through strides and
-takes any S (it masks keys past S itself, so nothing is padded).  Every
+takes any S (it masks keys past S itself, so nothing is padded), at head
+dims 64, 128 and 112 (kimi-k2's, computed at 128 with 112 kept).  Every
 launch counts in ``LAUNCHES["swa_attention_bhsd"]`` and in the count of the
 kernel it took (``KERNELS``).
 
@@ -25,7 +26,7 @@ from repro_torch.kernels.swa_attention import ref
 
 NAME = "swa_attention_bhsd"
 BLK = 128                 # the TPU kernel's tile; the window is a multiple of it
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)    # 112 (kimi-k2) runs on the 128-wide kernels
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # operand dtype -> the launch count of the kernel that dtype takes
 KERNELS = {torch.bfloat16: f"{NAME}:wgmma", torch.float32: f"{NAME}:cuda_cores"}

@@ -1,12 +1,14 @@
-"""GQA attention (covers MHA) with an optional sliding window
-(``repro.models.attention``, GQA part).
+"""Attention variants (``repro.models.attention``): GQA (covers MHA) with
+an optional sliding window, and MLA (DeepSeek-V2) with its compressed
+KV cache.
 
 Full-sequence attention (prefill) is the memory-bounded double-blocked
 online softmax of the reference (``blocked_attention``), which is also the
 plain version of the sliding-window kernel in
 ``repro_torch.kernels.swa_attention``.  ``gqa_forward`` routes to that
-kernel exactly where the reference routes to its Pallas kernel.  MLA is not
-ported (ROADMAP.md queue 1 item 13).
+kernel exactly where the reference routes to its Pallas kernel; MLA never
+does, in either package: its q/k head dim (nope + rope) differs from v's,
+and it runs ``blocked_attention``.
 """
 from __future__ import annotations
 
@@ -181,3 +183,110 @@ def gqa_decode(params, x, position, cache, *, n_heads, n_kv_heads, d_head,
     out = decode_attention(qg, k_cache, v_cache, position, kv_pos, window=window)
     out = out.reshape(B, 1, n_heads * d_head)
     return out @ params["w_o"], {"k": k_cache, "v": v_cache, "pos": kv_pos}
+
+
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V2), compressed KV cache
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen, d_model, n_heads, *, kv_lora_rank, qk_nope_dim, qk_rope_dim,
+             v_head_dim, dtype):
+    return {
+        "w_q": dense_init(gen, (d_model, n_heads * (qk_nope_dim + qk_rope_dim)), dtype),
+        "w_dkv": dense_init(gen, (d_model, kv_lora_rank), dtype),
+        "w_kr": dense_init(gen, (d_model, qk_rope_dim), dtype),
+        "w_uk": dense_init(gen, (kv_lora_rank, n_heads * qk_nope_dim), dtype),
+        "w_uv": dense_init(gen, (kv_lora_rank, n_heads * v_head_dim), dtype),
+        "w_o": dense_init(gen, (n_heads * v_head_dim, d_model), dtype),
+    }
+
+
+def _mla_qkr(params, x, positions, n_heads, qk_nope_dim, qk_rope_dim, rope_theta):
+    """-> q_nope (B, S, H, dn), q_rope (B, S, H, dr), the latent c_kv
+    (B, S, r) and the one rotary key head k_rope (B, S, dr)."""
+    B, S, _ = x.shape
+    q = (x @ params["w_q"]).reshape(B, S, n_heads, qk_nope_dim + qk_rope_dim)
+    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, rope_theta)
+    c_kv = x @ params["w_dkv"]
+    k_rope = apply_rope((x @ params["w_kr"])[:, :, None, :], positions, rope_theta)
+    return q_nope, q_rope, c_kv, k_rope[:, :, 0, :]
+
+
+def _mla_expand_kv(params, c_kv, n_heads, qk_nope_dim, v_head_dim):
+    B, S, _ = c_kv.shape
+    k_nope = (c_kv @ params["w_uk"]).reshape(B, S, n_heads, qk_nope_dim)
+    v = (c_kv @ params["w_uv"]).reshape(B, S, n_heads, v_head_dim)
+    return k_nope, v
+
+
+def _mla_keys(k_nope, k_rope):
+    """Full-width keys: the one rotary head broadcast across the heads."""
+    B, S, H, _ = k_nope.shape
+    return torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, k_rope.shape[-1])],
+                     dim=-1)
+
+
+def mla_forward(params, x, positions, *, n_heads, kv_lora_rank, qk_nope_dim,
+                qk_rope_dim, v_head_dim, rope_theta, window=None):
+    """Full-sequence MLA (prefill): MHA over the expanded latent kv, q/k of
+    dn + dr dims against v of ``v_head_dim``, through ``blocked_attention``.
+    Returns (out, (c_kv, k_rope)), the compressed cache."""
+    B, S, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(
+        params, x, positions, n_heads, qk_nope_dim, qk_rope_dim, rope_theta)
+    k_nope, v = _mla_expand_kv(params, c_kv, n_heads, qk_nope_dim, v_head_dim)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]   # G = 1 a head
+    scale = (qk_nope_dim + qk_rope_dim) ** -0.5
+    out = blocked_attention(q_full, _mla_keys(k_nope, k_rope), v, positions, positions,
+                            window=window, softmax_scale=scale)
+    out = out.reshape(B, S, n_heads * v_head_dim)
+    return out @ params["w_o"], (c_kv, k_rope)
+
+
+def mla_decode(params, x, position, cache, *, n_heads, kv_lora_rank, qk_nope_dim,
+               qk_rope_dim, v_head_dim, rope_theta, window=None, absorbed=False):
+    """Decode with the compressed cache {"c_kv": (B,Sc,r), "k_rope": (B,Sc,dr), "pos"},
+    a ring buffer written at slot ``position % Sc``.
+
+    ``absorbed=False`` (paper-exact naive path) re-expands k/v for the whole
+    cache.  ``absorbed=True`` folds w_uk into the query and w_uv into the
+    output, so the attention runs in the latent space, in fp32, cast to
+    ``x``'s dtype after w_uv.  Returns (out, new cache); the given cache is
+    left as it was."""
+    B = x.shape[0]
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkr(
+        params, x, position[:, None], n_heads, qk_nope_dim, qk_rope_dim, rope_theta)
+    Sc = cache["c_kv"].shape[1]
+    slot = (position % Sc).long()
+    b_idx = torch.arange(B, device=x.device)
+    c_kv, k_rope, kv_pos = (cache[n].clone() for n in ("c_kv", "k_rope", "pos"))
+    c_kv[b_idx, slot] = c_kv_new[:, 0]
+    k_rope[b_idx, slot] = k_rope_new[:, 0]
+    kv_pos[b_idx, slot] = position.to(torch.int32)
+    scale = (qk_nope_dim + qk_rope_dim) ** -0.5
+
+    if absorbed:
+        # q_lat[b,h,r] = sum_d q_nope[b,h,d] * w_uk[r, h*dn+d]
+        w_uk = params["w_uk"].reshape(kv_lora_rank, n_heads, qk_nope_dim).float()
+        q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk)
+        s = torch.einsum("bhr,bkr->bhk", q_lat, c_kv.float())
+        s = s + torch.einsum("bhd,bkd->bhk", q_rope[:, 0].float(), k_rope.float())
+        s = s * scale
+        pos, qp = kv_pos, position[:, None]
+        mask = (pos >= 0) & (pos <= qp)
+        if window is not None:
+            mask &= (qp - pos) < window
+        p = torch.softmax(torch.where(mask[:, None, :], s, NEG_INF), dim=-1)
+        o_lat = torch.einsum("bhk,bkr->bhr", p, c_kv.float())
+        w_uv = params["w_uv"].reshape(kv_lora_rank, n_heads, v_head_dim).float()
+        out = torch.einsum("bhr,rhd->bhd", o_lat, w_uv)
+        out = out.reshape(B, 1, n_heads * v_head_dim).to(x.dtype)
+    else:
+        k_nope, v = _mla_expand_kv(params, c_kv, n_heads, qk_nope_dim, v_head_dim)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]
+        out = decode_attention(q_full, _mla_keys(k_nope, k_rope), v, position, kv_pos,
+                               window=window, softmax_scale=scale)
+        out = out.reshape(B, 1, n_heads * v_head_dim)
+    return out @ params["w_o"], {"c_kv": c_kv, "k_rope": k_rope, "pos": kv_pos}

@@ -23,7 +23,7 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
     std = scale if scale is not None else fan_in ** -0.5
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)      # in place: one fp32 copy of a large leaf
 
 
 def embed_init(gen: torch.Generator, shape, dtype):

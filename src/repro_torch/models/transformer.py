@@ -1,15 +1,18 @@
-"""Composable decoder-only model (``repro.models.transformer``), for the
-ported mixers: GQA attention (with an optional sliding window) and RWKV6,
-each followed by a dense SwiGLU FFN or (on attention layers of an MoE
-config) the mixture of experts of ``repro_torch.models.moe``.
+"""Composable decoder-only model covering all ten architectures of the
+zoo (``repro.models.transformer``).
 
-A model is an optional unrolled *prefix* of layers followed by a periodic
+A model is a sequence of *layers*, each layer = (mixer, ffn) with mixer in
+{GQA attention (with an optional sliding window), MLA attention, Mamba,
+RWKV6} and ffn in {dense SwiGLU, the mixture of experts of
+``repro_torch.models.moe``}; a vision config projects precomputed patch
+embeddings (``batch["frontend_embeds"]``) and puts them before the tokens.
+
+The layers are an optional unrolled *prefix* followed by a periodic
 *super-block* repeated ``n_rep`` times.  The reference ``lax.scan``s the
 super-block over ``params["stack"]``, whose leaves carry a leading ``n_rep``
 axis; the port keeps that tree (so weights carry across by key path) and
-loops over the axis in Python.  MLA, Mamba and the vision frontend are not
-ported (ROADMAP.md queue 1 item 13); neither is ``shard_hints`` (a no-op on
-one device; queue 1 item 14).
+loops over the axis in Python.  ``shard_hints`` is not ported (a no-op on
+one device; ROADMAP.md queue 1 item 14).
 
 With autograd on, the token lookup (``layers.embed_lookup``) and the gold
 logit (``_onehot_gold``) are one-hot products: the same values, and a
@@ -25,12 +28,12 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import frontends as fr
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rw
 from repro_torch.device import resolve_device
-
-_NOT_PORTED = "is not ported to repro_torch yet (ROADMAP.md queue 1 item 13)"
 
 
 # ---------------------------------------------------------------------------
@@ -130,18 +133,6 @@ class ModelConfig:
         return prefix, specs, rest // period
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a part of ``cfg`` not ported yet."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"frontend {cfg.frontend!r} {_NOT_PORTED}")
-    prefix, specs, _ = cfg.segment_plan()
-    for mixer, _ in prefix + specs:
-        if mixer not in ("attn", "rwkv6"):
-            raise NotImplementedError(f"mixer {mixer!r} {_NOT_PORTED}")
-        if mixer == "attn" and cfg.attn_type != "gqa":
-            raise NotImplementedError(f"attention {cfg.attn_type!r} {_NOT_PORTED}")
-
-
 # ---------------------------------------------------------------------------
 # Trees of tensors (the reference's pytrees of params and states)
 # ---------------------------------------------------------------------------
@@ -168,6 +159,27 @@ def _tree_index(tree, i):
     return tree_map(lambda t: t[i], tree)
 
 
+def _stack_reps(make, n_rep):
+    """``n_rep`` trees from ``make()`` stacked leaf by leaf along a new axis
+    0, holding at most one tree beside the stack (a single tree becomes the
+    stack without a copy): the largest models fill most of one card."""
+    first = make()
+    if n_rep == 1:
+        return tree_map(lambda t: t.unsqueeze(0), first)
+    stack = tree_map(lambda t: t.new_empty((n_rep,) + t.shape), first)
+
+    def put(dst, src, r):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], r)
+        else:
+            dst[r].copy_(src)
+    for r in range(n_rep):
+        put(stack, first if r == 0 else make(), r)
+        first = None
+    return stack
+
+
 # ---------------------------------------------------------------------------
 # Per-layer init / apply
 # ---------------------------------------------------------------------------
@@ -178,14 +190,26 @@ def _layer_init(cfg: ModelConfig, gen, spec):
     dev = gen.device
     p = {"norm1": L.rmsnorm_init(cfg.d_model, dev),
          "norm2": L.rmsnorm_init(cfg.d_model, dev)}
-    if mixer == "attn":
+    if mixer == "attn" and cfg.attn_type == "mla":
+        p["mixer"] = attn.mla_init(
+            gen, cfg.d_model, cfg.n_heads, kv_lora_rank=cfg.kv_lora_rank,
+            qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+            v_head_dim=cfg.v_head_dim, dtype=cfg.param_dtype)
+    elif mixer == "attn":
         p["mixer"] = attn.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.head_dim, cfg.qkv_bias, cfg.param_dtype)
-    else:
+    elif mixer == "mamba":
+        p["mixer"] = mb.mamba_init(gen, cfg.d_model, d_state=cfg.mamba_d_state,
+                                   expand=cfg.mamba_expand,
+                                   conv_width=cfg.mamba_conv_width,
+                                   dtype=cfg.param_dtype)
+    elif mixer == "rwkv6":
         p["mixer"] = rw.rwkv6_init(gen, cfg.d_model, cfg.n_heads,
                                    lora_rank=cfg.rwkv_lora_rank,
                                    w_lora_rank=cfg.rwkv_w_lora_rank,
                                    dtype=cfg.param_dtype)
+    else:
+        raise ValueError(mixer)
     if ffn == "dense":
         p["ffn"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)
     else:
@@ -196,24 +220,52 @@ def _layer_init(cfg: ModelConfig, gen, spec):
     return p
 
 
+def _mla_dims(cfg):
+    return dict(n_heads=cfg.n_heads, kv_lora_rank=cfg.kv_lora_rank,
+                qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+                v_head_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta,
+                window=cfg.window)
+
+
+def _mamba_dims(cfg):
+    return dict(d_state=cfg.mamba_d_state, expand=cfg.mamba_expand,
+                conv_width=cfg.mamba_conv_width)
+
+
 def _mixer_forward(cfg, spec, p, x, positions, state):
     """Full-sequence mixer. Returns (out, new_state_or_cache)."""
-    if spec[0] == "attn":
+    mixer = spec[0]
+    if mixer == "attn" and cfg.attn_type == "mla":
+        out, (c_kv, k_rope) = attn.mla_forward(p, x, positions, **_mla_dims(cfg))
+        return out, {"c_kv": c_kv, "k_rope": k_rope, "pos": positions.to(torch.int32)}
+    if mixer == "attn":
         out, kv = attn.gqa_forward(
             p, x, positions, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             d_head=cfg.head_dim, rope_theta=cfg.rope_theta, window=cfg.window,
             use_kernel=cfg.use_kernels)
         return out, {"k": kv[0], "v": kv[1], "pos": positions.to(torch.int32)}
-    return rw.rwkv6_forward(p, x, n_heads=cfg.n_heads, state=state,
-                            use_kernel=cfg.use_kernels)
+    if mixer == "mamba":
+        return mb.mamba_forward(p, x, state=state, **_mamba_dims(cfg))
+    if mixer == "rwkv6":
+        return rw.rwkv6_forward(p, x, n_heads=cfg.n_heads, state=state,
+                                use_kernel=cfg.use_kernels)
+    raise ValueError(mixer)
 
 
 def _mixer_decode(cfg, spec, p, x, position, state):
-    if spec[0] == "attn":
+    mixer = spec[0]
+    if mixer == "attn" and cfg.attn_type == "mla":
+        return attn.mla_decode(p, x, position, state, absorbed=cfg.mla_absorb,
+                               **_mla_dims(cfg))
+    if mixer == "attn":
         return attn.gqa_decode(p, x, position, state, n_heads=cfg.n_heads,
                                n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
                                rope_theta=cfg.rope_theta, window=cfg.window)
-    return rw.rwkv6_decode(p, x, state, n_heads=cfg.n_heads)
+    if mixer == "mamba":
+        return mb.mamba_decode(p, x, state, **_mamba_dims(cfg))
+    if mixer == "rwkv6":
+        return rw.rwkv6_decode(p, x, state, n_heads=cfg.n_heads)
+    raise ValueError(mixer)
 
 
 def _ffn_forward(cfg, spec, p, x):
@@ -251,9 +303,8 @@ def _layer_decode(cfg, spec, p, x, position, state):
 def init_params(cfg: ModelConfig, gen: torch.Generator):
     """Random parameters drawn from ``gen``, on its device, in the
     reference's tree: ``embed``, ``final_norm``, ``head`` (untied),
-    ``prefix`` (a list of layers) and ``stack`` ({"sub<i>": layer} with a
-    leading ``n_rep`` axis on every leaf)."""
-    check_ported(cfg)
+    ``frontend`` (vision), ``prefix`` (a list of layers) and ``stack``
+    ({"sub<i>": layer} with a leading ``n_rep`` axis on every leaf)."""
     prefix, specs, n_rep = cfg.segment_plan()
     params = {"embed": L.embed_init_params(gen, cfg.padded_vocab, cfg.d_model,
                                            cfg.param_dtype),
@@ -261,10 +312,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
     if not cfg.tie_embeddings:
         params["head"] = {"w_out": L.dense_init(gen, (cfg.d_model, cfg.padded_vocab),
                                                 cfg.param_dtype)}
+    if cfg.frontend == "vision":
+        params["frontend"] = fr.frontend_init(gen, cfg.d_frontend, cfg.d_model,
+                                              cfg.param_dtype)
     params["prefix"] = [_layer_init(cfg, gen, spec) for spec in prefix]
-    params["stack"] = _tree_stack([
-        {f"sub{i}": _layer_init(cfg, gen, spec) for i, spec in enumerate(specs)}
-        for _ in range(n_rep)])
+    params["stack"] = _stack_reps(
+        lambda: {f"sub{i}": _layer_init(cfg, gen, spec) for i, spec in enumerate(specs)},
+        n_rep)
     return params
 
 
@@ -274,8 +328,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
 
 
 def _embed_inputs(cfg, params, batch):
-    """batch: {"tokens": (B, S)} (the vision frontend is not ported)."""
-    return L.embed_lookup(params["embed"], batch["tokens"])
+    """batch: {"tokens": (B, S_text)[, "frontend_embeds": (B, P, d_frontend)]};
+    a vision config's projected patches come first: (B, P + S_text, d)."""
+    x = L.embed_lookup(params["embed"], batch["tokens"])
+    if cfg.frontend == "vision":
+        fe = fr.project_frontend(params["frontend"], batch["frontend_embeds"])
+        x = torch.cat([fe.to(x.dtype), x], dim=1)
+    return x
 
 
 def _logits(cfg, params, x):
@@ -297,7 +356,6 @@ def _logits(cfg, params, x):
 
 def forward(cfg: ModelConfig, params, batch, *, return_states: bool = False):
     """Returns (final hidden, aux_loss, states)."""
-    check_ported(cfg)
     prefix, specs, n_rep = cfg.segment_plan()
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
@@ -339,6 +397,9 @@ def lm_loss(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01):
     ``aux_weight`` times the MoE balance loss."""
     x, aux, _ = forward(cfg, params, batch)
     labels = batch["labels"]
+    # only the token positions are scored (frontend positions carry no labels)
+    if cfg.frontend == "vision":
+        x = x[:, -labels.shape[1]:]
 
     def chunk_loss(xc, yc):
         logits = _logits(cfg, params, xc).float()
@@ -369,23 +430,30 @@ def prefill(cfg: ModelConfig, params, batch):
 
 
 def _mixer_state(cfg, spec, B, cache_len, device):
-    dt = cfg.param_dtype
-    if spec[0] == "attn":
-        shape = (B, cache_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device),
-                "pos": torch.full((B, cache_len), -1, dtype=torch.int32, device=device)}
-    N = cfg.d_model // cfg.n_heads
-    return {"x_prev": torch.zeros((B, cfg.d_model), dtype=dt, device=device),
-            "wkv": torch.zeros((B, cfg.n_heads, N, N), dtype=torch.float32,
-                               device=device)}
+    dt, mixer = cfg.param_dtype, spec[0]
+    zeros = lambda *shape, dtype=dt: torch.zeros(shape, dtype=dtype, device=device)
+    if mixer == "attn":
+        pos = torch.full((B, cache_len), -1, dtype=torch.int32, device=device)
+        if cfg.attn_type == "mla":
+            return {"c_kv": zeros(B, cache_len, cfg.kv_lora_rank),
+                    "k_rope": zeros(B, cache_len, cfg.qk_rope_dim), "pos": pos}
+        return {"k": zeros(B, cache_len, cfg.n_kv_heads, cfg.head_dim),
+                "v": zeros(B, cache_len, cfg.n_kv_heads, cfg.head_dim), "pos": pos}
+    if mixer == "mamba":
+        d_inner = cfg.mamba_expand * cfg.d_model
+        return {"conv": zeros(B, cfg.mamba_conv_width - 1, d_inner),
+                "ssm": zeros(B, d_inner, cfg.mamba_d_state, dtype=torch.float32)}
+    if mixer == "rwkv6":
+        N = cfg.d_model // cfg.n_heads
+        return {"x_prev": zeros(B, cfg.d_model),
+                "wkv": zeros(B, cfg.n_heads, N, N, dtype=torch.float32)}
+    raise ValueError(mixer)
 
 
 def init_decode_state(cfg: ModelConfig, B: int, max_seq: int, device=None):
     """Allocate the serve-time state on ``device`` (the GPU unless given;
     with no GPU this raises).  Attention caches are ring buffers of
     ``min(max_seq, window)`` slots when a sliding window is configured."""
-    check_ported(cfg)
     device = resolve_device(device)
     cache_len = max_seq if cfg.window is None else min(max_seq, cfg.window)
     prefix, specs, n_rep = cfg.segment_plan()
@@ -393,6 +461,27 @@ def init_decode_state(cfg: ModelConfig, B: int, max_seq: int, device=None):
            for i, s in enumerate(specs)}
     return {"prefix": [_mixer_state(cfg, s, B, cache_len, device) for s in prefix],
             "stack": tree_map(lambda t: t.expand((n_rep,) + t.shape).clone(), one)}
+
+
+# the ring caches' leaves: a slot per position, the axis after the batch
+CACHE_KEYS = ("k", "v", "c_kv", "k_rope", "pos")
+
+
+def load_prefill(state, states, stacked=False, key=None):
+    """A fresh decode ``state`` holding ``prefill``'s ``states`` of a prompt
+    no longer than its caches: cache leaves (``CACHE_KEYS``) copied into
+    their first slots (the axis after the batch, and after the stack's
+    repeat axis), recurrent leaves whole."""
+    if isinstance(state, dict):
+        return {k: load_prefill(state[k], states[k], stacked or k == "stack", k)
+                for k in state}
+    if isinstance(state, list):
+        return [load_prefill(a, b, stacked, key) for a, b in zip(state, states)]
+    if key not in CACHE_KEYS:
+        return states.clone()
+    out, axis = state.clone(), 2 if stacked else 1
+    out.narrow(axis, 0, states.shape[axis]).copy_(states)
+    return out
 
 
 def decode_step(cfg: ModelConfig, params, state, tokens, position):

@@ -1,10 +1,12 @@
 """Serve an architecture with batched greedy decoding (the port's
 ``examples/serve_model.py``): feed a batch of random prompts token by token
 through the decode path (cache warm-up), then step the ring-buffered KV /
-recurrent state with greedy decoding, at the reduced config.  Runs on the
-GPU unless given ``--device cpu``.
+recurrent state with greedy decoding, at the reduced config of any of the
+zoo's ten architectures (default deepseek-v2-lite-16b, as the example's).
+Runs on the GPU unless given ``--device cpu``.
 
-  PYTHONPATH=src python -m repro_torch.serve_model --arch rwkv6-1.6b
+  PYTHONPATH=src python -m repro_torch.serve_model --arch deepseek-v2-lite-16b
+  PYTHONPATH=src python -m repro_torch.serve_model --arch jamba-v0.1-52b --device cpu
 """
 import argparse
 import time
@@ -37,7 +39,7 @@ def serve(cfg, params, prompt: torch.Tensor, gen_len: int):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--arch", default="deepseek-v2-lite-16b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--gen-len", type=int, default=24)

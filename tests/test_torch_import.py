@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither ``jax`` nor ``repro``, runs on
-the CPU only when asked to, and refuses configurations it has not ported."""
+the CPU only when asked to, refuses configurations it has not ported, and
+makes, runs and serves every architecture of the zoo."""
 import os
 import pkgutil
 import re
@@ -205,35 +206,48 @@ def test_slice_configs_are_accepted():
         SimConfig(selector="priority", selector_params=(("hold", 3),))
 
 
-@pytest.mark.parametrize("override,part", [
-    (dict(block_pattern=("mamba",)), "mixer 'mamba'"),
-    (dict(attn_type="mla"), "attention 'mla'"),
-    (dict(frontend="vision"), "frontend 'vision'"),
-])
-def test_unported_model_parts_name_their_roadmap_item(override, part):
-    """The model zoo's mixers, ffns and frontend that are not ported raise
-    where a model is made, run or served."""
-    import dataclasses
-    from repro_torch.configs import get_reduced
-    from repro_torch.models import forward, init_decode_state, init_params
-    cfg = dataclasses.replace(get_reduced("internlm2-1.8b"), **override)
-    pat = rf"{part} is not ported .*ROADMAP\.md queue 1 item 13\)"
-    with pytest.raises(NotImplementedError, match=pat):
-        init_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match=pat):
-        forward(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match=pat):
-        init_decode_state(cfg, 1, 8, "cpu")
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "rwkv6-1.6b", "internvl2-76b",
+                                  "minicpm-2b", "internlm2-1.8b", "jamba-v0.1-52b",
+                                  "qwen2.5-3b", "deepseek-v2-lite-16b",
+                                  "kimi-k2-1t-a32b", "musicgen-medium"])
+def test_every_architecture_is_made_run_and_served(arch):
+    """``get_config`` and ``get_reduced`` load each of the zoo's ten
+    architectures, and its reduced config (bf16) is made, run, prefilled,
+    scored and served on the CPU: finite values of the expected shapes."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models import (decode_step, forward, init_decode_state,
+                                    init_params, lm_loss, prefill)
+    from repro_torch.serve_model import serve
+    full, cfg = get_config(arch), get_reduced(arch)
+    assert full.arch_id == arch and cfg.family == full.family
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen, dtype=torch.int32)
+    batch = {"tokens": toks[:, :8], "labels": toks[:, 1:]}
+    n_front = 0
+    if cfg.frontend == "vision":
+        n_front = cfg.n_frontend_tokens
+        batch["frontend_embeds"] = torch.randn((2, n_front, cfg.d_frontend), generator=gen)
+    x, aux, _ = forward(cfg, params, batch)
+    assert x.shape == (2, n_front + 8, cfg.d_model) and torch.isfinite(x).all()
+    logits, states = prefill(cfg, params, batch)
+    assert logits.shape == (2, 1, cfg.vocab_size) and torch.isfinite(logits).all()
+    loss = lm_loss(cfg, params, batch)
+    assert loss.shape == () and torch.isfinite(loss)
+    state = init_decode_state(cfg, 2, 9, "cpu")
+    step, state = decode_step(cfg, params, state, toks[:, 0],
+                              torch.zeros((2,), dtype=torch.int32))
+    assert step.shape == (2, cfg.vocab_size) and torch.isfinite(step).all()
+    out, last, _ = serve(cfg, params, toks[:, :4], 3)
+    assert out.shape == (2, 4) and torch.isfinite(last).all()
+    assert ((out >= 0) & (out < cfg.vocab_size)).all()
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "deepseek-v2-lite-16b",
-                                  "jamba-v0.1-52b", "musicgen-medium"])
-def test_unported_architectures_name_their_roadmap_item(arch):
+def test_unknown_architecture_raises_key_error():
     from repro_torch.configs import get_config, get_reduced
     for get in (get_config, get_reduced):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue 1 item 13\)"):
-            get(arch)
+        with pytest.raises(KeyError, match="unknown architecture"):
+            get("llama-7b")
 
 
 def test_moe_ffn_is_accepted_and_runs():

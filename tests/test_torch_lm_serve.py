@@ -249,18 +249,81 @@ def test_init_matches_reference_tree(name):
                 assert np.abs(tf).max() <= 2.0 * t.shape[-2] ** -0.5 * 1.01, path
 
 
-def test_forward_and_decode_state_shapes_on_full_configs():
+# arch -> (prefix specs, super-block specs, repeats) of the published config
+FULL_PLANS = {
+    "internlm2-1.8b": ([], [("attn", "dense")], 24),
+    "rwkv6-1.6b": ([], [("rwkv6", "dense")], 24),
+    "qwen2.5-3b": ([], [("attn", "dense")], 36),
+    "qwen2.5-32b": ([], [("attn", "dense")], 64),
+    "minicpm-2b": ([], [("attn", "dense")], 40),
+    "musicgen-medium": ([], [("attn", "dense")], 48),
+    "internvl2-76b": ([], [("attn", "dense")], 80),
+    "deepseek-v2-lite-16b": ([("attn", "dense")], [("attn", "moe")], 26),
+    "kimi-k2-1t-a32b": ([("attn", "dense")], [("attn", "moe")], 60),
+    "jamba-v0.1-52b": ([], [("mamba", "dense"), ("mamba", "moe"), ("mamba", "dense"),
+                            ("attn", "moe"), ("mamba", "dense"), ("mamba", "moe"),
+                            ("mamba", "dense"), ("mamba", "moe")], 4),
+}
+
+
+@pytest.mark.parametrize("arch", list(FULL_PLANS))
+def test_forward_and_decode_state_shapes_on_full_configs(arch):
     """The published configs' trees at a glance (no weights made): the
-    segment plans and the decode state's cache length."""
-    from repro_torch.configs import get_config
-    internlm = dataclasses.replace(get_config("internlm2-1.8b"), window=8192)
-    assert internlm.segment_plan() == ([], [("attn", "dense")], 24)
-    assert internlm.head_dim == 128 and internlm.n_heads // internlm.n_kv_heads == 2
-    rwkv = get_config("rwkv6-1.6b")
-    assert rwkv.segment_plan() == ([], [("rwkv6", "dense")], 24)
-    assert rwkv.d_model // rwkv.n_heads == 64
+    segment plans, and the decode state's shapes under the repo's
+    ``long_500k`` adaptation (a ring of at most 8192 slots wherever there
+    is attention; MLA's compressed cache; Mamba's conv and fp32 scan
+    state; RWKV6's fp32 WKV state)."""
+    from repro_torch.configs import adapt_for_shape, get_config, shape_for
+    cfg = adapt_for_shape(get_config(arch), shape_for("long_500k"))
+    assert cfg.segment_plan() == FULL_PLANS[arch]
+    prefix, specs, n_rep = FULL_PLANS[arch]
+    assert (cfg.window == 8192) == any(m == "attn" for m, _ in prefix + specs)
+    state = init_decode_state(cfg, 1, 3, "cpu")
+    assert len(state["prefix"]) == len(prefix)
+    for i, (mixer, _) in enumerate(specs):
+        sub = {k: tuple(v.shape) for k, v in state["stack"][f"sub{i}"].items()}
+        if mixer == "attn" and cfg.attn_type == "mla":
+            assert sub == {"c_kv": (n_rep, 1, 3, cfg.kv_lora_rank),
+                           "k_rope": (n_rep, 1, 3, cfg.qk_rope_dim), "pos": (n_rep, 1, 3)}
+        elif mixer == "attn":
+            kv = (n_rep, 1, 3, cfg.n_kv_heads, cfg.head_dim)
+            assert sub == {"k": kv, "v": kv, "pos": (n_rep, 1, 3)}
+        elif mixer == "mamba":
+            d_inner = cfg.mamba_expand * cfg.d_model
+            assert sub == {"conv": (n_rep, 1, cfg.mamba_conv_width - 1, d_inner),
+                           "ssm": (n_rep, 1, d_inner, cfg.mamba_d_state)}
+            assert state["stack"][f"sub{i}"]["ssm"].dtype == torch.float32
+        else:
+            n = cfg.d_model // cfg.n_heads
+            assert sub == {"x_prev": (n_rep, 1, cfg.d_model),
+                           "wkv": (n_rep, 1, cfg.n_heads, n, n)}
+    if arch == "internlm2-1.8b":
+        assert cfg.head_dim == 128 and cfg.n_heads // cfg.n_kv_heads == 2
+    if arch == "rwkv6-1.6b":
+        assert cfg.d_model // cfg.n_heads == 64
+    if arch == "kimi-k2-1t-a32b":
+        assert cfg.head_dim == 112          # the attention kernel's Dh 112
     small = dataclasses.replace(tget("internlm2-1.8b"), window=128)
-    state = init_decode_state(small, 3, 1000, "cpu")
-    assert state["stack"]["sub0"]["k"].shape == (2, 3, 128, 2, 64)
-    assert (state["stack"]["sub0"]["pos"] == -1).all()
-    assert tree_map(lambda t: t.device.type, state)["stack"]["sub0"]["v"] == "cpu"
+    ring = init_decode_state(small, 3, 1000, "cpu")
+    assert ring["stack"]["sub0"]["k"].shape == (2, 3, 128, 2, 64)
+    assert (ring["stack"]["sub0"]["pos"] == -1).all()
+    assert tree_map(lambda t: t.device.type, ring)["stack"]["sub0"]["v"] == "cpu"
+
+
+@pytest.mark.parametrize("which", ["CONFIG", "REDUCED"])
+@pytest.mark.parametrize("arch", list(FULL_PLANS))
+def test_configs_match_the_reference_field_for_field(arch, which):
+    """Each of the ten published configs and its reduced cut is the
+    reference's, field for field (dtypes by name)."""
+    import repro.configs as jconfigs
+    import repro_torch.configs as tconfigs
+    get = "get_config" if which == "CONFIG" else "get_reduced"
+    jc, tc = getattr(jconfigs, get)(arch), getattr(tconfigs, get)(arch)
+    names = [f.name for f in dataclasses.fields(jc)]
+    assert [f.name for f in dataclasses.fields(tc)] == names
+    for name in names:
+        want, got = getattr(jc, name), getattr(tc, name)
+        if name == "param_dtype":
+            assert str(got) == f"torch.{jnp.dtype(want).name}", name
+        else:
+            assert got == want, name

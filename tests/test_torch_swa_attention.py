@@ -2,8 +2,8 @@
 (``repro_torch.kernels.swa_attention``) against the JAX Pallas kernel
 ``swa_attention`` in interpret mode, on ``tests/test_kernels.py``'s shapes
 (GQA groups 1, 2 and 4; S off the 128 tile; windows of 1 and 3 tiles) and
-the CUDA kernels' tile edges (S = 63, 65, 129; G = 8) in
-fp32 and bf16, the window's exact reach, the TPU kernel layout
+the CUDA kernels' tile edges (S = 63, 65, 129; G = 8) and head dims (64,
+128, and kimi-k2's 112) in fp32 and bf16, the window's exact reach, the TPU kernel layout
 (``swa_attention_bhsd``), and the wrappers' checks.
 
 Tolerance: 1e-4 in fp32 and 3e-2 in bf16, the reference's own for its
@@ -30,7 +30,10 @@ SHAPES = [(1, 256, 2, 1, 64, 128),
           # the GPU kernels' edges: a 64-row warpgroup, a 128-row tile; G = 8
           (1, 63, 2, 1, 128, 128),
           (2, 65, 4, 2, 64, 128),
-          (1, 129, 8, 1, 64, 128)]
+          (1, 129, 8, 1, 64, 128),
+          # kimi-k2's head dim, 112: the 128-wide kernels keep 112 columns
+          (1, 200, 4, 2, 112, 128),
+          (2, 129, 8, 1, 112, 256)]
 DTYPES = {"fp32": (jnp.float32, torch.float32, 1e-4),
           "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 
@@ -149,3 +152,18 @@ def test_cuda_kernel_matches_plain_version():
                 (before[0] + 1, before[1] + 1)
             torch.testing.assert_close(got.float(), ref.swa_attention_ref(
                 q, k, v, window=W).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_rejects_other_head_dims():
+    """On the card a head dim outside (64, 112, 128) raises and launches
+    nothing: no fallback to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    before = LAUNCHES[ops.NAME]
+    for dh in (32, 96, 120, 256):
+        q, k, v = (torch.zeros((1, 130, 2, dh), device="cuda", dtype=torch.bfloat16)
+                   for _ in range(3))
+        with pytest.raises(ValueError, match="head dims"):
+            ops.swa_attention(q, k, v, window=128)
+    assert LAUNCHES[ops.NAME] == before
