@@ -108,8 +108,9 @@ From the repository root, with nothing built beforehand.  It
      deepseek-v2-lite (MLA: plain attention, no kernel 8), qwen2.5-32b,
      internvl2 (256 patch embeddings before the tokens), jamba (Mamba and
      attention) and kimi-k2 (Dh 112): a 1 x 16,384 prefill with exact
-     kernel 8 launches and B = 4 requests each (deepseek's absorbed and
-     naive), its prefill profile;
+     kernel 8 launches and B = 4 requests each (deepseek's with absorbed
+     MLA; naive == absorbed decode is held on fp32 weights), its prefill
+     profile;
   5. checks the result: finite parameters of the model's width; each flat
      campaign equal to its fused twin bit for bit (records, params and
      robust counters), each eager run to its graphed one; kernels 1 and 2
@@ -151,7 +152,22 @@ From the repository root, with nothing built beforehand.  It
      ``saa_apply`` (its route before) and where its host time goes (the
      "wrapper host path" line); kernels 1-3 on the chain at the LM
      cells' shapes, and a profile of the example's LM cell;
-     each build's registers and spills, per kernel, are printed after step 2.
+     each build's registers and spills, per kernel, are printed after step 2;
+  7. right after step 2, before any profiler session (its ~1.5 million
+     kernels, run after one, left later profiler reads empty and ran
+     slower), the pod FL train step (``train_paths``):
+     internlm2-1.8b at full width under train_4k (bf16, loss chunks of
+     1,024, remat), 4 participants (one stale) of 1 x 4,096 tokens, one
+     local step, through ``repro_torch.launch.train``'s vmap cohort (warm,
+     then timed; profiled at the end), its stream cohort and a YoGi step, each
+     launching no kernel (kernels 8 and 9 are forward-only), and ``python
+     -m repro_torch.launch.train --rounds 10`` in a subprocess; gates: loss
+     finite, params changed, weights summing to 1, vmap == stream within
+     the reference test's bounds, the vmap weights and aggregate
+     recomputed in fp64 from its own deltas, remat on == off bit for bit at
+     a 4-layer cut with less peak memory, the reduced model's step on the
+     card == on the CPU, and ``lm_loss`` through kernels 8 and 9 refusing
+     autograd on the card.
 It exits non-zero, printing no result, on any failure or without a GPU.
 The next-to-last line is the per-kernel JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -321,6 +337,24 @@ MLA_ABSORB_TOL = 1e-3
 # the requests' profile: 4 prompt + 4 generated tokens (the profiler's cost
 # grows with its ~2,000 GPU kernels a decode step)
 PROFILE_REQUESTS = dict(prompt=4, gen=4)
+# the pod FL train step (``train_paths``): internlm2-1.8b at full width as
+# the reference's dryrun lowers it for training (train_4k: bf16, loss chunks
+# of 1,024, remat), P participants of which the last is stale at tau 2 (as
+# the reference's CLI marks one), a local batch of 1 x 4,096 tokens each,
+# one local step, rule relay; the vmap cohort warm once, then timed
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_P = 4
+TRAIN_TAU = 2
+TRAIN_BATCH = (1, 4_096)
+TRAIN_TIMED = 2
+TRAIN_REMAT_LAYERS = 4        # the remat on / off cut, full width
+TRAIN_CLI_ROUNDS = 10
+# vmap == stream: the reference's own test's bounds (tests/test_models_smoke.py)
+TRAIN_W_TOL, TRAIN_P_TOL = dict(rtol=1e-3, atol=1e-5), dict(rtol=1e-2, atol=1e-5)
+# the CPU tests' bounds for card == CPU at REDUCED in fp32
+# (tests/test_torch_fl_train_step.py)
+TRAIN_CPU_TOL, TRAIN_UPDATE_REL_L2 = dict(rtol=1e-4, atol=1e-4), 1e-3
+BF16_DENSE_PEAK = 989e12      # FLOP/s, H100 SXM data sheet, dense bf16
 
 # examples/selector_zoo.py's race at its full size (zoo_spec, not --smoke),
 # seed 0, with the SAA kernels on; flat twins of these two
@@ -383,6 +417,10 @@ TRIM_TIME_S = (1, 8)
 # K-round chunks: the fused quickstart campaigns and the S = 64 sweep again
 # at K = CHUNK_K, held bit for bit to K = 1
 QUICK_FUSED = ("Random", "RELAY", "RELAY+YoGi")
+# the campaigns profiled at the script's end: the first of each family (one
+# profile a campaign cost ~45 s of the script's time limit)
+PROFILED = ("Random", "Random K=4", "Random eager", "Random flat", "saa (attacked)",
+            "saa (attacked) flat", "zoo random", "zoo safa flat", "fig07 SAFA")
 CHUNK_K = 4
 # the chaos phase: examples/chaos_round.py's accuracy gate, and its soft
 # crash (after this round, a snapshot every that many rounds)
@@ -1618,7 +1656,7 @@ def arch_paths(torch) -> dict:
     tokens (internvl2: 256 random patch embeddings + 16,128 tokens), cold
     and warm, profiled, with exactly ``ARCH_PATHS``' kernel 8 launches, all
     on the tensor-core kernel; B = 4 requests through ``serve`` (deepseek's
-    absorbed and naive).  Then at ``ARCH_PLAIN_CUT``'s depth, full
+    with absorbed MLA).  Then at ``ARCH_PLAIN_CUT``'s depth, full
     width, the kernel path's logits of the last ``ARCH_LOGIT_ROWS``
     positions against the plain versions' on the same seeded weights:
     fp32 (relative L2 <= FP32_REL_L2) and bf16 (no further from the fp32
@@ -1744,11 +1782,6 @@ def arch_paths(torch) -> dict:
                "prefill_tokens_per_s": ARCH_S / t_pre, "prefill_profile": prof,
                "plain_part_share": share,
                **h.requests(cfg.arch_id, cfg, params, gen, {})}
-        if cfg.attn_type == "mla":
-            naive = dataclasses.replace(cfg, mla_absorb=not cfg.mla_absorb)
-            res["requests_" + ("naive" if cfg.mla_absorb else "absorbed")] = h.requests(
-                f"{cfg.arch_id} ({'naive' if cfg.mla_absorb else 'absorbed'} MLA)",
-                naive, params, gen, {})
         del params
         torch.cuda.empty_cache()
         # the kernel path against the plain versions at ARCH_PLAIN_CUT's
@@ -1767,6 +1800,354 @@ def arch_paths(torch) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     print(f"architectures phase: {out['seconds']:.1f}s")
     return out
+
+
+def train_paths(torch):
+    """The pod FL train step (``repro_torch.launch.train``) training
+    internlm2-1.8b at full width as the reference's dryrun lowers it for
+    training (``adapt_for_shape(..., train_4k)``: bf16 params, ``loss_chunk``
+    1,024, ``remat``), weights from a seeded ``torch.Generator``, a cohort of
+    ``TRAIN_P`` participants (the last stale at tau ``TRAIN_TAU``) with a
+    local batch of 1 x 4,096 tokens each from ``federated_token_shards``,
+    one local step, rule relay.  Runs: the vmap cohort once warm (the
+    aggregate step, its deltas kept) and ``TRAIN_TIMED`` times timed (the
+    FedAvg step), the stream cohort once, a YoGi step on the stream cohort;
+    each with the launch counters zeroed just before it and none launched
+    (the path runs no kernel: kernels 8 and 9 are forward-only).  Gates:
+    (a) loss finite, params changed, weights summing to 1, the fresh ones
+    equal; (b) vmap == stream within the reference test's bounds; (c) the
+    vmap weights and aggregate recomputed in fp64 from its own deltas, leaf
+    by leaf on the card; (d) a ``TRAIN_REMAT_LAYERS``-layer cut at full
+    width, one local step with remat on and off: the same bits, less peak
+    memory with it; (e) REDUCED internlm2 in fp32, card == the host's CPU
+    for a vmap and a YoGi step within the CPU tests' bounds; (f) on the
+    card ``lm_loss`` through kernel 8 (window 128) and kernel 9 (rwkv6)
+    raises under autograd and launches nothing, and still launches under
+    no_grad; (g) ``python -m repro_torch.launch.train --rounds 10`` exits 0
+    and prints ``done``.  Reports round seconds, training tokens/s, model
+    FLOP/s (6 N tokens) and their share of the card's dense bf16 peak and
+    peak memory, and the blocked attention's share of a vmap round.
+    Returns (its report, ``profile_train``: a profile of one vmap round,
+    run with the script's other profiles)."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from repro_torch.configs import adapt_for_shape, get_config, get_reduced, shape_for
+    from repro_torch.core.aggregation import tree_leaves, yogi_init
+    from repro_torch.data.synthetic import federated_token_shards
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import train as tr
+    from repro_torch.models import attention as attn
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import tree_map
+
+    out = {"launches": Counter(), "runs": {}, "gates": {}}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = adapt_for_shape(get_config(TRAIN_ARCH), shape_for("train_4k"))
+    if (cfg.param_dtype, cfg.loss_chunk, cfg.remat, cfg.use_kernels) != (
+            torch.bfloat16, 1024, True, False):
+        fail(f"train: unexpected config {cfg}")
+    P, (B, S) = TRAIN_P, TRAIN_BATCH
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(300))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    shards = federated_token_shards(cfg.vocab_size, P, B, S, skew=0.3)
+    batch = {k: torch.from_numpy(np.stack([sh[k] for sh in shards])).cuda()
+             for k in ("tokens", "labels")}
+    fresh = torch.arange(P, device="cuda") < P - 1
+    tau = torch.where(fresh, 0, TRAIN_TAU).to(torch.int32)
+    tokens = P * B * S
+    out.update(config=dict(arch=cfg.arch_id, params=n_params, participants=P,
+                           local_batch=[B, S], fresh=fresh.tolist(), tau=tau.tolist(),
+                           loss_chunk=cfg.loss_chunk, remat=cfg.remat, rule="relay",
+                           local_steps=1))
+    print(f"train: {cfg.arch_id} (train_4k: bf16, loss_chunk {cfg.loss_chunk}, remat), "
+          f"{n_params / 1e9:.3f} B params ({2 * n_params / 1e9:.2f} GB bf16, "
+          f"{4 * n_params / 1e9:.2f} GB a fp32 delta); P = {P} ({P - 1} fresh, 1 stale "
+          f"at tau {TRAIN_TAU}), {B} x {S} tokens each, one local step")
+
+    def run(name, fn, rounds=1, n_tokens=tokens, n=n_params):
+        """``fn()`` ``rounds`` times, synchronized, launch counters zeroed
+        just before; the last result.  Its record (``out["runs"][name]``)
+        counts ``n_tokens`` training tokens a round of an ``n``-param model."""
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            res = fn()
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / rounds
+        if LAUNCHES:
+            fail(f"train {name}: launched {dict(LAUNCHES)}; the train path runs no "
+                 "kernel (kernels 8 and 9 are forward-only)")
+        model_flops = 6 * n * n_tokens
+        rec = {"round_s": secs, "rounds": rounds, "tokens_per_s": n_tokens / secs,
+               "model_flops_per_s": model_flops / secs,
+               "bf16_peak_share": model_flops / secs / BF16_DENSE_PEAK,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        out["runs"][name] = rec
+        print(f"train {name}: {secs:.3f} s a round ({rounds} timed), {rec['tokens_per_s']:.0f} "
+              f"training tokens/s, model FLOP/s {rec['model_flops_per_s'] / 1e12:.1f} T "
+              f"(6 N tokens; {rec['bf16_peak_share']:.4f} of the dense bf16 peak), peak "
+              f"memory {rec['peak_gb']:.2f} GB; no kernel launched")
+        return res
+
+    def changed(new, old):
+        n = sum(int((a != b).sum()) for a, b in zip(tree_leaves(new), tree_leaves(old)))
+        return n / n_params
+
+    def check_round(name, new, m):
+        """(a): loss finite, params changed, weights sum to 1, fresh equal."""
+        w = m["weights"]
+        frac = changed(new, params)
+        if not (torch.isfinite(m["loss"]) and frac > 0 and abs(float(w.sum()) - 1) <= 1e-4
+                and bool((w[fresh] == w[0]).all())):
+            fail(f"train {name}: loss {float(m['loss'])}, {frac:.3g} of params changed, "
+                 f"weights {w.tolist()}")
+        if not all(torch.isfinite(t).all() for t in tree_leaves(new)):
+            fail(f"train {name}: non-finite params")
+        out["gates"][f"a {name}"] = {"loss": float(m["loss"]), "weights": w.tolist(),
+                                     "changed_share": frac}
+        print(f"train {name} (a): loss {float(m['loss']):.4f}, weights "
+              f"{[round(x, 6) for x in w.tolist()]} (sum {float(w.sum()):.7f}), "
+              f"{frac:.4f} of params changed")
+
+    # --- the vmap cohort: the aggregate step warm with its deltas, then the
+    # FedAvg step timed on the same params and batch
+    kept = {}
+    agg, m_agg = run("vmap warm (aggregate step)", lambda: tr.make_fl_aggregate_step(
+        cfg, cohort="vmap")(params, batch, fresh, tau, deltas_out=kept))
+    # (c) the weights and aggregate recomputed in fp64 from its own deltas
+    # (P, columns) slices of each leaf of ~2^26 columns, in fp64 (2 GB)
+    slices = lambda leaf: (leaf.flatten(1)[:, c:c + (1 << 26)].double()
+                           for c in range(0, leaf[0].numel(), 1 << 26))
+    deltas = tree_leaves(kept.pop("deltas"))
+    f64 = fresh.double()
+    n_f = f64.sum()
+    diff_sq = torch.zeros(P, dtype=torch.float64, device="cuda")
+    uhat_sq = torch.zeros((), dtype=torch.float64, device="cuda")
+    for d in deltas:
+        for d64 in slices(d):
+            h = f64 @ d64 / n_f
+            diff_sq += ((d64 - h) ** 2).sum(1)
+            uhat_sq += (h * h).sum()
+    lam = torch.where(fresh, 0.0, diff_sq / ((n_f + 1) ** 2 * uhat_sq))
+    w64 = tr._relay_weights(fresh, tau, lam, rule="relay", beta=0.35)
+    num = den = 0.0
+    for d, a in zip(deltas, tree_leaves(agg)):
+        for d64, a64 in zip(slices(d), slices(a[None])):
+            want = w64 @ d64
+            num += float(((a64[0] - want) ** 2).sum())
+            den += float((want ** 2).sum())
+    gate_c = {"lam": lam.tolist(), "weights_fp64": w64.tolist(),
+              "weights_max_abs": (m_agg["weights"].double() - w64).abs().max().item(),
+              "aggregate_rel_l2": (num / den) ** 0.5}
+    out["gates"]["c vmap fp64"] = gate_c
+    del deltas, kept
+    if gate_c["weights_max_abs"] > 1e-5 or gate_c["aggregate_rel_l2"] > 1e-5:
+        fail(f"train (c): the vmap step's weights or aggregate differ from fp64: {gate_c}")
+    print(f"train vmap (c): weights within {gate_c['weights_max_abs']:.3g} of fp64 from its "
+          f"own deltas (Lam {[f'{x:.4g}' for x in gate_c['lam']]}), aggregate relative L2 "
+          f"{gate_c['aggregate_rel_l2']:.3g}, leaf by leaf on the card")
+    vstep = tr.make_fl_train_step(cfg, cohort="vmap")
+    new_v, m_v = run("vmap", lambda: vstep(params, batch, fresh, tau), TRAIN_TIMED)
+    check_round("vmap", new_v, m_v)
+    server = tree_map(lambda p, a: (p.float() + a).to(p.dtype), params, agg)
+    if not (torch.equal(m_v["weights"], m_agg["weights"]) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(new_v), tree_leaves(server)))):
+        fail("train vmap: the FedAvg step != params + the aggregate step's delta, bitwise")
+    del agg, server
+    torch.cuda.empty_cache()
+    # the blocked attention alone at the path's shape (events), in the same
+    # state as the rounds: a local step runs it forward twice (remat) and
+    # backward once in each layer
+    G = cfg.n_heads // cfg.n_kv_heads
+    g = torch.Generator(device="cuda").manual_seed(5)
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(
+        cfg.param_dtype).requires_grad_()
+    q, k, v = (mk(B, S, cfg.n_kv_heads, G, cfg.head_dim),
+               mk(B, S, cfg.n_kv_heads, cfg.head_dim), mk(B, S, cfg.n_kv_heads, cfg.head_dim))
+    pos = torch.arange(S, device="cuda", dtype=torch.int32)[None]
+    fwd = lambda: attn.blocked_attention(q, k, v, pos, pos)
+    t_f = time_ms(torch, fwd, 3, warmup=1)
+    t_fb = time_ms(torch, lambda: torch.autograd.grad(fwd().float().square().sum(),
+                                                      (q, k, v)), 3, warmup=1)
+    del q, k, v
+    out["attention"] = {"fwd_ms": t_f, "fwd_bwd_ms": t_fb, "share": P * cfg.n_layers * (
+        t_f + t_fb) / 1e3 / out["runs"]["vmap"]["round_s"]}
+    print(f"train vmap: blocked attention {t_f:.2f} ms forward, {t_fb:.2f} ms forward + "
+          f"backward a layer (events), x {cfg.n_layers} layers x {P} participants with "
+          f"remat = {out['attention']['share']:.3f} of the round")
+    # --- the stream cohort, and (b) vmap == stream
+    new_s, m_s = run("stream", lambda: tr.make_fl_train_step(cfg, cohort="stream")(
+        params, batch, fresh, tau))
+    check_round("stream", new_s, m_s)
+    w_ok = torch.allclose(m_s["weights"], m_v["weights"], **TRAIN_W_TOL)
+    p_ok = all(torch.allclose(a.float(), b.float(), **TRAIN_P_TOL)
+               for a, b in zip(tree_leaves(new_s), tree_leaves(new_v)))
+    gate_b = {"weights_max_abs": (m_s["weights"] - m_v["weights"]).abs().max().item(),
+              "params_differ_share": changed(new_s, new_v),
+              "params_max_abs": max((a.float() - b.float()).abs().max().item()
+                                    for a, b in zip(tree_leaves(new_s), tree_leaves(new_v))),
+              "loss_gap": abs(float(m_s["loss"]) - float(m_v["loss"]))}
+    out["gates"]["b vmap == stream"] = gate_b
+    if not (w_ok and p_ok):
+        fail(f"train (b): vmap != stream beyond the reference test's bounds: {gate_b}")
+    print(f"train (b): vmap == stream within weights {TRAIN_W_TOL}, params {TRAIN_P_TOL}: "
+          f"{gate_b}")
+    del new_s, new_v
+    torch.cuda.empty_cache()
+
+    # --- YoGi on the stream cohort
+    opt = yogi_init(params)
+    new_y, opt, m_y = run("YoGi stream", lambda: tr.make_fl_train_step_yogi(
+        cfg, cohort="stream")(params, opt, batch, fresh, tau))
+    check_round("YoGi stream", new_y, m_y)
+    if int(opt["t"]) != 1 or not torch.equal(m_y["weights"], m_s["weights"]):
+        fail(f"train YoGi: t {int(opt['t'])}, weights {m_y['weights'].tolist()} vs the "
+             f"stream step's {m_s['weights'].tolist()}")
+    del new_y, opt, params
+    torch.cuda.empty_cache()
+
+    # --- (d) remat on and off: one local step of a full-width cut
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_REMAT_LAYERS)
+    p_cut = init_params(cut, torch.Generator(device="cuda").manual_seed(301))
+    pb = {k: v[0] for k, v in batch.items()}
+    n_cut, res_d = sum(t.numel() for t in tree_leaves(p_cut)), {}
+    for remat in (True, False):
+        c = dataclasses.replace(cut, remat=remat)
+        name = f"{TRAIN_REMAT_LAYERS}-layer cut, remat {'on' if remat else 'off'}, one step"
+        d, loss = run(name, lambda: tr._participant_delta_fn(c, 1e-2, 1)(p_cut, pb),
+                      n_tokens=B * S, n=n_cut)
+        res_d[remat] = (d, loss, out["runs"][name]["peak_gb"])
+    same = torch.equal(res_d[True][1], res_d[False][1]) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(res_d[True][0]),
+                                          tree_leaves(res_d[False][0])))
+    gate_d = {"bitwise": same, "peak_gb_remat": res_d[True][2],
+              "peak_gb_no_remat": res_d[False][2],
+              "differ_share": changed(res_d[True][0], res_d[False][0])}
+    out["gates"]["d remat"] = gate_d
+    if not same or gate_d["peak_gb_remat"] >= gate_d["peak_gb_no_remat"]:
+        fail(f"train (d): remat on vs off: {gate_d}")
+    print(f"train (d): {TRAIN_REMAT_LAYERS} layers at full width, one local step: remat on "
+          f"== off bit for bit (loss, delta); peak memory {gate_d['peak_gb_remat']:.2f} GB "
+          f"with remat, {gate_d['peak_gb_no_remat']:.2f} GB without")
+    del res_d, p_cut
+    torch.cuda.empty_cache()
+
+    # --- (e) REDUCED internlm2 in fp32: the card against the host's CPU
+    rcfg = dataclasses.replace(get_reduced(TRAIN_ARCH), param_dtype=torch.float32)
+    rp = init_params(rcfg, torch.Generator().manual_seed(302))
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, rcfg.vocab_size, (3, 2, 17)).astype(np.int32)
+    rb = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    rf, rt = np.array([True, True, False]), np.array([0, 0, 2], np.int32)
+
+    def on(dev):
+        on_dev = lambda t: torch.as_tensor(t).to(dev)
+        return (tree_map(on_dev, rp), {k: on_dev(v) for k, v in rb.items()},
+                on_dev(rf), on_dev(rt))
+    gate_e = {}
+    for name in ("vmap", "YoGi stream"):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            p0, b0, f0, t0_ = on(dev)
+            if name == "vmap":
+                got[dev] = tr.make_fl_train_step(rcfg)(p0, b0, f0, t0_)
+            else:
+                new, st, m = tr.make_fl_train_step_yogi(rcfg, cohort="stream")(
+                    p0, yogi_init(p0), b0, f0, t0_)
+                got[dev] = (new, dict(m, m_state=st["m"], v_state=st["v"]))
+        (gp, gm), (cp, cm) = got["cuda"], got["cpu"]
+        cpu = lambda t: t.cpu().double()
+        upd = lambda p: torch.cat([cpu(a).flatten() - cpu(b).flatten()
+                                   for a, b in zip(tree_leaves(p), tree_leaves(rp))])
+        rel = float((upd(gp) - upd(cp)).norm() / upd(cp).norm())
+        ok = (rel <= TRAIN_UPDATE_REL_L2
+              and torch.allclose(cpu(gm["loss"]), cpu(cm["loss"]), **TRAIN_CPU_TOL)
+              and torch.allclose(cpu(gm["weights"]), cpu(cm["weights"]), **TRAIN_CPU_TOL)
+              and all(torch.allclose(cpu(a), cpu(b), **TRAIN_CPU_TOL)
+                      for a, b in zip(tree_leaves(gp), tree_leaves(cp))))
+        if name != "vmap":
+            ok = ok and all(torch.allclose(cpu(a), cpu(b), rtol=1e-3, atol=1e-8)
+                            for a, b in zip(tree_leaves(gm["m_state"]),
+                                            tree_leaves(cm["m_state"])))
+        gate_e[name] = {"update_rel_l2": rel, "loss": [float(gm["loss"]), float(cm["loss"])],
+                        "params_max_abs": max((cpu(a) - cpu(b)).abs().max().item()
+                                              for a, b in zip(tree_leaves(gp), tree_leaves(cp)))}
+        if not ok:
+            fail(f"train (e) {name}: the card differs from the CPU: {gate_e[name]}")
+        print(f"train (e) REDUCED fp32 {name}: card == CPU (update relative L2 {rel:.3g}, "
+              f"params max abs {gate_e[name]['params_max_abs']:.3g}, losses "
+              f"{gate_e[name]['loss']})")
+    out["gates"]["e card == CPU"] = gate_e
+
+    # --- (f) the repair: autograd through kernels 8 and 9 raises on the card
+    gate_f = {}
+    for arch, over, kernel in ((TRAIN_ARCH, dict(window=128), SWA), ("rwkv6-1.6b", {}, WKV)):
+        c = dataclasses.replace(get_reduced(arch), use_kernels=True, **over)
+        p0 = init_params(c, torch.Generator(device="cuda").manual_seed(303))
+        t0_ = torch.randint(0, c.vocab_size, (1, 257), device="cuda")
+        b0 = {"tokens": t0_[:, :-1], "labels": t0_[:, 1:]}
+        leaves = [l.requires_grad_() for l in tree_leaves(p0)]
+        LAUNCHES.clear()
+        try:
+            torch.autograd.grad(lm_loss(c, p0, b0), leaves)
+        except NotImplementedError as e:
+            msg = str(e)
+        else:
+            fail(f"train (f): lm_loss through {kernel} trained on the card")
+        if LAUNCHES or "item 13" not in msg:
+            fail(f"train (f): {kernel}: launches {dict(LAUNCHES)}, message {msg!r}")
+        with torch.no_grad():
+            loss = lm_loss(c, p0, b0)
+        want = c.n_layers
+        if LAUNCHES[kernel] != want or not torch.isfinite(loss):
+            fail(f"train (f): {kernel} under no_grad launched {dict(LAUNCHES)} (want "
+                 f"{want}), loss {float(loss)}")
+        gate_f[kernel] = {"message": msg, "no_grad_launches": dict(LAUNCHES)}
+        print(f"train (f): lm_loss through {kernel} under autograd on the card raised "
+              f"NotImplementedError before any launch; under no_grad it launched "
+              f"{dict(LAUNCHES)}")
+    out["gates"]["f repair"] = gate_f
+    LAUNCHES.clear()      # the no_grad launches were checks, not the path's
+
+    # --- (g) the CLI
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--rounds",
+                          str(TRAIN_CLI_ROUNDS)], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    lines = cli.stdout.strip().splitlines()
+    if cli.returncode != 0 or not lines or lines[-1] != "done":
+        fail(f"train (g): the CLI exited {cli.returncode}: {cli.stdout[-2000:]} "
+             f"{cli.stderr[-2000:]}")
+    out["gates"]["g cli"] = {"stdout": lines, "seconds": time.perf_counter() - t0}
+    print(f"train (g): python -m repro_torch.launch.train --rounds {TRAIN_CLI_ROUNDS}: "
+          f"{' | '.join(lines)} ({out['gates']['g cli']['seconds']:.1f}s)")
+    def profile_train():
+        """A profile of one vmap round."""
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(300))
+        prof = profile_campaign(torch, lambda: vstep(params, batch, fresh, tau))
+        del params
+        round_s = out["runs"]["vmap"]["round_s"]
+        prof["busy_share_of_unprofiled_wall"] = prof["device_busy_ms"] / (round_s * 1e3)
+        out["profile_vmap"] = prof
+        idle = prof["device_idle_share"]
+        print(f"train vmap profile: {prof['gpu_kernels']} GPU kernels, device busy "
+              f"{prof['device_busy_ms']:.1f} of {prof['wall_ms']:.1f} ms (idle share "
+              f"{'not measured' if idle is None else f'{idle:.3f}'}; "
+              f"{prof['busy_share_of_unprofiled_wall']:.3f} of the unprofiled round's "
+              f"{round_s * 1e3:.1f} ms); top:")
+        for kname, ms in prof["top_kernels_ms"].items():
+            print(f"  {ms:9.3f} ms  {kname[:90]}")
+
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"train phase: {out['seconds']:.1f}s")
+    return out, profile_train
 
 
 def _leaves(tree):
@@ -3433,6 +3814,7 @@ def main():
         """Seconds since the last phase ended, into the report."""
         now = time.perf_counter()
         report["phase_s"][phase] = now - t_phase[0]
+        print(f"phase {phase}: {now - t_phase[0]:.1f}s", flush=True)
         t_phase[0] = now
     print(f"card: {report['card']}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -3502,6 +3884,12 @@ def main():
     lap("SAA and trimmed-mean kernel checks")
     report["swa_checks"] = check_lm_kernels(torch, checks, gen)
     lap("LM kernel checks")
+    # --- the pod FL train step at full width, before any profiler session:
+    # its ~1.5 million kernels run after one left later profiler reads empty,
+    # and ran slower there
+    train, profile_train = train_paths(torch)
+    report["train"] = train
+    lap("train")
 
     # --- 3. the paths, launch counters zeroed just before each ----------
     yogi = dict(CAMPAIGNS["RELAY"], server_opt="yogi")
@@ -3529,7 +3917,7 @@ def main():
                                             CELL_AGG)
     race.update({name: (kw, APPLY) for name, kw in FIG07_CELLS.items()})
     runs.update(race)
-    gpu, sims, launches = {}, {}, Counter()
+    gpu, sims, launches = {}, {}, Counter(train.pop("launches"))
     report["paths"] = {}
     for name, (kw, kernel) in runs.items():
         sims[name] = Simulator(SimConfig(**kw), device="cuda")
@@ -3725,11 +4113,13 @@ def main():
               f"{len(acct.records) / secs:.1f} rounds/s{graphs}")
 
     def profile_campaigns():
-        """A profile of each timed campaign, run again; taken after the
-        kernel times (many traces in a process broke a later profiler
-        read).  The busy time is also set against the unprofiled run's
-        wall: the profiler's host cost inflates a graphed run's wall most."""
-        for i, (name, (kw, eager)) in enumerate(timed.items()):
+        """A profile of the first timed campaign of each family
+        (``PROFILED``), run again; taken after the kernel times (many traces
+        in a process broke a later profiler read).  The busy time is also
+        set against the unprofiled run's wall: the profiler's host cost
+        inflates a graphed run's wall most."""
+        for i, name in enumerate(PROFILED):
+            kw, eager = timed[name]
             prof = profile_campaign(torch, lambda: drive(
                 Simulator(SimConfig(**kw), device="cuda"), eager)[0],
                 compare_readers=i == 0)
@@ -3967,6 +4357,8 @@ def main():
     lap("FL campaign profiles")
     profile_sweeps()
     lap("sweep profiles")
+    profile_train()           # the train step's profile, with the others
+    lap("train profile")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in report["phase_s"].items()))
     report.update(times=times, launches=dict(launches),
                   kernel_checks=dict(checks.n), check_cases=dict(checks.cases),

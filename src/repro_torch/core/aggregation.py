@@ -8,7 +8,9 @@ reference), so the stale cache, aggregation and server step never see the
 model's structure.  ``aggregate_updates`` / ``weights_and_aggregate_by_id`` are the
 ``use_agg_kernel=False`` server path; with the flag on, the pipeline and
 ``stale_synchronous_aggregate_flat`` call the CUDA kernels in
-``repro_torch.kernels.staleness_agg`` instead.
+``repro_torch.kernels.staleness_agg`` instead.  The YoGi server also comes
+on parameter trees (``yogi_init`` / ``yogi_apply``, the pod train step's),
+with the flat version's elementwise formulas leaf by leaf.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.staleness import EPS, RULE_ID, staleness_weights_by_id
+from repro_torch.models.transformer import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +48,12 @@ def _leaves(tree, path=()):
             yield from _leaves(v, path + (i,))
     else:
         yield path, tree
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists in ``jax.tree.leaves``'
+    order (dict keys sorted, lists by index)."""
+    return [leaf for _, leaf in _leaves(tree)]
 
 
 def _skeleton(tree, count):
@@ -365,6 +374,34 @@ def guarded_aggregate_flat(stacked, fresh, tau, *, rule: str = "relay",
 def fedavg_apply(flat, delta, server_lr: float = 1.0):
     """x_{t+1} = x_t + lr * Delta  (McMahan et al., 2017)."""
     return flat + server_lr * delta
+
+
+def yogi_init(params) -> dict:
+    """YoGi state over a parameter tree: m = 0 and v = 1e-6 in fp32 leaf by
+    leaf, t = 0 (a 0-d int32 tensor), on the params' device."""
+    leaf = tree_leaves(params)[0]
+    return {"m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                device=p.device), params),
+            "v": tree_map(lambda p: torch.full(p.shape, 1e-6, dtype=torch.float32,
+                                               device=p.device), params),
+            "t": torch.zeros((), dtype=torch.int32, device=leaf.device)}
+
+
+def yogi_apply(params, delta, state: dict, *, lr=1e-2, b1=0.9, b2=0.99, eps=1e-3):
+    """Federated YoGi (Reddi et al. / Ramaswamy et al., 2020) on trees, the
+    reference's elementwise formulas leaf by leaf (those of
+    ``yogi_apply_flat``, so the bits equal it on the flattened tree):
+
+        v <- v - (1-b2) * d^2 * sign(v - d^2)   (YoGi's additive variant of Adam)
+
+    The update is computed in fp32 and cast back to each parameter's dtype.
+    Returns (new params, new state); nothing is updated in place."""
+    m = tree_map(lambda m_, d: b1 * m_ + (1 - b1) * d.float(), state["m"], delta)
+    v = tree_map(lambda v_, d: v_ - (1 - b2) * torch.square(d.float())
+                 * torch.sign(v_ - torch.square(d.float())), state["v"], delta)
+    new = tree_map(lambda p, m_, v_: (p.float() + lr * m_ / (torch.sqrt(v_) + eps)
+                                      ).to(p.dtype), params, m, v)
+    return new, {"m": m, "v": v, "t": state["t"] + 1}
 
 
 def yogi_init_flat(d: int, *, device=None, width: int | None = None) -> dict:

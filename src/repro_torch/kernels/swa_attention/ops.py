@@ -13,7 +13,10 @@ kernel it took (``KERNELS``).
 The window must be a multiple of the TPU kernel's 128 tile, as the reference
 requires.  The plain version (``ref``) runs when every tensor lies on the
 CPU; on one CUDA device the kernel launches on the current stream; anything
-else raises: a CUDA tensor never falls back to the plain version.
+else raises: a CUDA tensor never falls back to the plain version.  The
+kernel is forward-only: on the card a call that autograd would record
+(grad mode on, an operand requiring grad) raises before the launch
+(``kernels.refuse_autograd``); on the CPU the plain version differentiates.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, contiguous16
+from repro_torch.kernels import LAUNCHES, _build, contiguous16, refuse_autograd
 from repro_torch.kernels.swa_attention import ref
 
 NAME = "swa_attention_bhsd"
@@ -88,6 +91,7 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
     if _check(q, k, v, window, "swa_attention").type == "cpu":
         return ref.swa_attention_ref(q, k, v, window=window)
+    refuse_autograd("swa_attention", q, k, v)
     q, k, v = (contiguous16(t) for t in (q, k, v))   # TMA reads 16-byte aligned rows
     B, S, H, Dh = q.shape
     Hkv = k.shape[2]
@@ -115,6 +119,7 @@ def swa_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = ref.swa_attention_ref(model(q, H), model(k, n_kv_heads),
                                     model(v, n_kv_heads), window=window)
         return out.transpose(1, 2).reshape(BH, S, Dh)
+    refuse_autograd(NAME, q, k, v)
     q, k, v = (contiguous16(t) for t in (q, k, v))   # TMA reads 16-byte aligned rows
     out = torch.empty_like(q)
     # (B*H, S, Dh) read as (batch, sequence, head) with head stride S*Dh

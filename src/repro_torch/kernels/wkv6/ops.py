@@ -9,7 +9,10 @@ r, k, v are fp32 or bf16 (one dtype), w fp32; y comes back in v's dtype and
 the final state in fp32.  The plain version (``ref``) runs when every tensor
 lies on the CPU; on one CUDA device the kernel launches on the current
 stream; anything else raises: a CUDA tensor never falls back to the plain
-version.
+version.  The kernel is forward-only: on the card a call that autograd
+would record (grad mode on, an operand requiring grad) raises before the
+launch (``kernels.refuse_autograd``); on the CPU the plain version
+differentiates.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, contiguous16
+from repro_torch.kernels import LAUNCHES, _build, contiguous16, refuse_autograd
 from repro_torch.kernels.wkv6 import ref
 
 NAME = "wkv6_bhsn"
@@ -95,6 +98,7 @@ def wkv6(r, k, v, w, u, state0=None):
         raise ValueError(f"u must be ({H}, {N}), got {tuple(u.shape)}")
     if _check(r, k, v, w, u, state0, (B, H, N, N)).type == "cpu":
         return ref.wkv6_scan(r, k, v, w, u, state0=state0)
+    refuse_autograd("wkv6", r, k, v, w, u, state0)
     y, s_out = _launch(r, k, v, w, u, state0, B, H, S, N,
                        (S * H * N, H * N, N), (0, N))
     return y, s_out.view(B, H, N, N)
@@ -115,5 +119,6 @@ def wkv6_bhsn(r, k, v, w, u, s0):
         y, s_fin = ref.wkv6_scan(r[:, :, None], k[:, :, None], v[:, :, None],
                                  w[:, :, None], u, state0=s0[:, None])
         return y[:, :, 0], s_fin[:, 0]
+    refuse_autograd(NAME, r, k, v, w, u, s0)
     # (B*H, S, N) read as B*H batches of one head
     return _launch(r, k, v, w, u, s0, BH, 1, S, N, (S * N, N, 0), (N, 0))

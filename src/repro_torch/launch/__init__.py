@@ -1,1 +1,2 @@
-"""Serve-path entry points (``repro.launch``, serve part)."""
+"""Entry points of a model of the zoo (``repro.launch``): the serve path
+(``serve``) and the pod FL train step (``train``)."""

@@ -87,9 +87,10 @@ _BASE_KNOBS = (
 def _no_kernels(knobs: dict) -> None:
     if int(knobs["use_kernels"]):
         raise NotImplementedError(
-            "use_kernels=1 on an LM learner (training through the forward-"
-            "only attention / WKV6 kernels) is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1 item 13)")
+            "use_kernels=1 on an LM learner would train through the forward-"
+            "only attention / WKV6 kernels, which neither package "
+            "differentiates (the reference fails in Pallas's JVP rule); train "
+            "with use_kernels=0 (ROADMAP.md queue 1 item 13)")
 
 
 def _base_cfg(knobs: dict, meta, **over) -> tf.ModelConfig:

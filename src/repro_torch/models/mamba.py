@@ -63,9 +63,11 @@ def _scan(x, dt, Bm, Cm, A, h):
         dA = torch.exp(dt_c * A)                                     # (L, B, d_inner, N)
         dBx = dt_c * Bm[:, sl].transpose(0, 1)[:, :, None, :] \
             * x[:, sl].transpose(0, 1)[..., None]
-        hs = torch.empty_like(dA)
-        for t in range(hs.shape[0]):
-            h = torch.addcmul(dBx[t], dA[t], h, out=hs[t])           # dA h + dBx
+        steps = []              # stacked after the loop: autograd records no out=
+        for t in range(dA.shape[0]):
+            h = torch.addcmul(dBx[t], dA[t], h)                      # dA h + dBx
+            steps.append(h)
+        hs = torch.stack(steps)
         ys.append((hs * Cm[:, sl].transpose(0, 1)[:, :, None, :]).sum(-1))
     return torch.cat(ys, dim=0).transpose(0, 1), h
 

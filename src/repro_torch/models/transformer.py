@@ -12,7 +12,10 @@ The layers are an optional unrolled *prefix* followed by a periodic
 super-block over ``params["stack"]``, whose leaves carry a leading ``n_rep``
 axis; the port keeps that tree (so weights carry across by key path) and
 loops over the axis in Python.  ``shard_hints`` is not ported (a no-op on
-one device; ROADMAP.md queue 1 item 14).
+one device; ROADMAP.md queue 1 item 14).  With ``cfg.remat`` and grad mode
+on, each repetition of the super-block runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): the
+backward recomputes its activations instead of keeping them.
 
 With autograd on, the token lookup (``layers.embed_lookup``) and the gold
 logit (``_onehot_gold``) are one-hot products: the same values, and a
@@ -26,6 +29,7 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import frontends as fr
@@ -138,13 +142,15 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every tensor leaf of nested dicts and lists."""
+def tree_map(fn, tree, *rest):
+    """``fn`` applied to every tensor leaf of nested dicts and lists, with
+    the leaves at the same key paths of the trees in ``rest`` (of the same
+    structure) as further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def _tree_stack(trees):
@@ -157,6 +163,17 @@ def _tree_stack(trees):
 
 def _tree_index(tree, i):
     return tree_map(lambda t: t[i], tree)
+
+
+def _tree_unbind(tree) -> list:
+    """A dict tree of stacked leaves as the list of its slices along axis 0
+    (views): the slices' backward stacks their gradients once, where
+    indexing each slice adds a zero-padded full-size gradient per slice."""
+    if isinstance(tree, dict):
+        subs = {k: _tree_unbind(v) for k, v in tree.items()}
+        n = len(next(iter(subs.values())))
+        return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _stack_reps(make, n_rep):
@@ -368,16 +385,27 @@ def forward(cfg: ModelConfig, params, batch, *, return_states: bool = False):
         aux_total = aux_total + aux
         prefix_states.append(st if return_states else None)
 
-    stack_states = []
-    for rep in range(n_rep):
-        p_slice = _tree_index(params["stack"], rep)
+    def superblock(x, aux_acc, p_slice):
         states = {}
         for i, spec in enumerate(specs):
             x, st, aux = _layer_forward(cfg, spec, p_slice[f"sub{i}"], x,
                                         positions, None)
-            aux_total = aux_total + aux
+            aux_acc = aux_acc + aux
             if return_states:
                 states[f"sub{i}"] = st
+        return x, aux_acc, states
+
+    # activation checkpointing, as the reference's jax.checkpoint(superblock):
+    # a repetition keeps only its inputs and recomputes its forward in the
+    # backward (the same ops on the same inputs: the same bits)
+    remat = cfg.remat and torch.is_grad_enabled()
+    stack_states = []
+    for p_slice in _tree_unbind(params["stack"]):
+        if remat:
+            x, aux_total, states = checkpoint(superblock, x, aux_total, p_slice,
+                                              use_reentrant=False)
+        else:
+            x, aux_total, states = superblock(x, aux_total, p_slice)
         stack_states.append(states)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     states = ({"prefix": prefix_states, "stack": _tree_stack(stack_states)}

@@ -62,7 +62,8 @@ def test_no_source_mentions_jax_or_reference_imports():
                  "sweeps.__main__", "telemetry", "telemetry.schema",
                  "telemetry.registry", "telemetry.export", "telemetry.trace",
                  "telemetry.session", "learners.lm", "models.moe",
-                 "data.synthetic", "federated_lm", "device"):
+                 "data.synthetic", "federated_lm", "device", "optim",
+                 "optim.sgd", "optim.schedules", "launch.train"):
         assert f"repro_torch.{name}" in names
 
 
