@@ -110,7 +110,19 @@ From the repository root, with nothing built beforehand.  It
      attention) and kimi-k2 (Dh 112): a 1 x 16,384 prefill with exact
      kernel 8 launches and B = 4 requests each (deepseek's with absorbed
      MLA; naive == absorbed decode is held on fp32 weights), its prefill
-     profile;
+     profile; and, after the sweep paths, the sharding phase
+     (``sharding_paths``): ranks it spawns itself
+     (``repro_torch.sim.participant_sharding.run_ranks``) run (a) the
+     quickstart's RELAY campaign with ``shard_participants=4`` on a
+     one-rank NCCL group, graphed with the round's all-reduce in its graph,
+     bit for bit the unsharded run, and on two gloo ranks sharing the card
+     (b) 10,000 learners with a 64-learner cohort split over "p", (c) an
+     S = 8 YoGi sweep split over "s" whose early stops repack it across
+     the boundary and (d) a trimmed-mean cell whose 64-row groups take
+     kernel 7's ``sort`` variant; kernels 1, 2 and 7 once a round that
+     aggregated on a rank, one all-reduce each; host records equal to the
+     unsharded runs, params bit for bit where the cuBLAS probe allows it,
+     else within the sweep phase's tolerance;
   5. checks the result: finite parameters of the model's width; each flat
      campaign equal to its fused twin bit for bit (records, params and
      robust counters), each eager run to its graphed one; kernels 1 and 2
@@ -450,6 +462,24 @@ LM_CHAOTIC_ROUNDS = 8
 LM_SPREAD_SEEDS = 3
 LM_SPREAD_MULT = 2.0
 TELEMETRY_REPS = 3
+# the sharding phase (sharding_paths): (a) on a one-rank NCCL group, (b)-(d)
+# on SHARD_RANKS gloo ranks sharing the card
+SHARD_DEVICE, SHARD_NCCL = "cuda", "nccl"
+SHARD_RANKS = 2
+SHARD_TIMEOUT = 180.0        # a group's collectives; its whole run 2x that
+SHARD_10K = dict(n_learners=10_000, rounds=6, eval_every=3, n_target=64,
+                 saa=True, selector="priority", mapping="label_uniform",
+                 seed=0, use_agg_kernel=True)
+SHARD_SWEEP = dict(axes={"saa": [False, True], "hardware": HARDWARE},
+                   base=dict(n_learners=30, rounds=12, eval_every=3,
+                             n_target=4, mapping="label_uniform",
+                             selector="priority", target_accuracy=0.15,
+                             server_opt="yogi", use_agg_kernel=True),
+                   seeds=(0,))
+SHARD_TRIMMED = dict(n_learners=300, rounds=8, eval_every=4, n_target=64,
+                     saa=True, selector="priority", mapping="label_uniform",
+                     aggregator="trimmed_mean", use_agg_kernel=True, seed=0,
+                     dynamic_availability=False)
 TELEMETRY_CKPT_EVERY = 6
 
 
@@ -3487,6 +3517,401 @@ def telemetry_paths(torch, launches) -> dict:
 # --- the federated LM learner ---------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# The sharding phase: participant and sweep-axis sharding on ranks of a
+# torch.distributed group (repro_torch.sim.participant_sharding)
+# ---------------------------------------------------------------------------
+
+
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _shard_result(torch, acct, sim, stats=None, launched=None, wall=None):
+    """A run as host objects a rank can send back: its records (every
+    field, and the host fields), params and YoGi state (CPU tensors), the
+    pipeline's stats, the launches counted over it, its wall seconds."""
+    opt = sim.flat_opt_state
+    return {"records": [record_bits(r) for r in acct.records],
+            "host": [host(r) for r in acct.records],
+            "summary": dict(acct.summary()),
+            "params": sim.flat_params.detach().cpu(),
+            "opt": None if opt is None else {k: v.detach().cpu()
+                                             for k, v in opt.items()},
+            "stats": stats, "launches": dict(launched or {}), "s": wall,
+            "aggregated": aggregated(acct), "rows": [
+                r.n_fresh + r.n_stale for r in acct.records
+                if r.n_fresh + r.n_stale > 0]}
+
+
+def _timed_run(torch, sim, eager=False):
+    """``sim``'s fused run with the launch counters zeroed just before it
+    and read just after, timed to the card's last kernel; ``eager`` turns
+    the round graphs off (``drive``'s switch)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.sim.pipeline import RoundPipeline
+    pipe = RoundPipeline([sim])
+    if eager:
+        pipe.graphs, pipe.stats.graphed = None, False
+    _sync(torch)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    acct = pipe.run()[0]
+    _sync(torch)
+    return _shard_result(torch, acct, sim, pipe.stats.as_dict(), LAUNCHES,
+                         time.perf_counter() - t0)
+
+
+def _reduce_ms(torch, group, n, reps=50):
+    """ms of one ``all_reduce`` of a (1, n, MAIN_D) operand on ``group``
+    (host clock to the card's last kernel: gloo stages through the host)."""
+    import torch.distributed as dist
+    u = torch.zeros((n, MAIN_D), device=SHARD_DEVICE)
+    for _ in range(3):
+        dist.all_reduce(u, group=group)
+    _sync(torch)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(u, group=group)
+    _sync(torch)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _shard_prepare(torch):
+    """A spawned rank's set-up: the kernels built by the parent, loaded;
+    the plain versions' matmuls in fp32, as in the parent."""
+    from repro_torch.kernels import _build
+    from repro_torch.sim.learner import fp32_matmuls
+    if SHARD_DEVICE == "cuda":
+        _build.build_all()
+    fp32_matmuls()
+
+
+def _shard_rank_nccl(rank, relay, reps):
+    """Check (a) on a one-rank NCCL group: the quickstart's RELAY campaign
+    unsharded and with ``shard_participants=4`` (clamped to the group's one
+    rank), in turns, ``reps`` times each; then the reduction's time on the
+    campaign's operand shape."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.aggregation import bucket_block
+    from repro_torch.sim import SimConfig, Simulator
+    from repro_torch.sim.pipeline import N_BLOCK
+    _shard_prepare(torch)
+    runs = []
+    for _ in range(reps):
+        for n_p in (0, 4):
+            sim = Simulator(SimConfig(**relay, shard_participants=n_p),
+                            device=SHARD_DEVICE)
+            runs.append(_timed_run(torch, sim))
+    rows = sorted(runs[-1]["rows"])
+    n = bucket_block(rows[len(rows) // 2], N_BLOCK)
+    u = torch.zeros((n, MAIN_D), device=SHARD_DEVICE)
+    return {"runs": runs, "reduce_n": n,
+            "reduce_ms": _reduce_ms(torch, dist.group.WORLD, n, reps=200),
+            "reduce_graph_ms": graph_ms(torch, lambda: dist.all_reduce(u),
+                                        replays=200)}
+
+
+def _shard_rank_gloo(rank, sub10k):
+    """Checks (b)-(d) on this rank of a two-rank gloo group sharing the
+    card: 10,000 learners split over "p", an S = 8 YoGi sweep split over
+    "s" (early stops repack it across the boundary), a trimmed-mean cell
+    of 64-row groups; then the reduction's time on (b)'s operand shape."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.aggregation import bucket_block
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.sim import SimConfig, Simulator
+    from repro_torch.sim.pipeline import N_BLOCK
+    from repro_torch.sweeps import SweepRunner, SweepSpec
+    _shard_prepare(torch)
+    cells = SweepSpec(**SHARD_SWEEP).expand()
+    for _ in range(2):     # the first pass pays the process's first uses
+        out = {"10k": _timed_run(torch, Simulator(
+            SimConfig(**SHARD_10K, shard_participants=True), sub10k,
+            device=SHARD_DEVICE))}
+        _sync(torch)
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        runner = SweepRunner(cells, device=SHARD_DEVICE, shard=True)
+        res = runner.run()
+        _sync(torch)
+        wall = time.perf_counter() - t0
+        out["sweep"] = {"cells": [_shard_result(torch, r.acct, sim)
+                                  for r, sim in zip(res, runner.sims)],
+                        "stats": runner.batch_stats,
+                        "launches": dict(LAUNCHES), "s": wall,
+                        "mesh": runner.mesh.shape}
+        out["trimmed"] = _timed_run(torch, Simulator(
+            SimConfig(**SHARD_TRIMMED, shard_participants=True),
+            device=SHARD_DEVICE))
+    rows = sorted(out["10k"]["rows"])
+    n = bucket_block(rows[len(rows) // 2], N_BLOCK)
+    out["reduce_n"] = n
+    out["reduce_ms"] = _reduce_ms(torch, dist.group.WORLD, n)
+    return out
+
+
+def sharding_paths(torch, launches) -> dict:
+    """The sharding phase: the checks (a)-(d) below, each in ranks this
+    script spawns (``run_ranks``), with the launch counters of each rank
+    zeroed just before each sharded run and read just after; the
+    unsharded runs they are held to run in this process.
+
+      (a) the quickstart's RELAY campaign with ``shard_participants=4`` on
+          a one-rank NCCL group (clamped to one shard), graphed, the
+          round's all-reduce inside its graph: records, params bit for bit
+          the unsharded run's (int32 views, the signs of zeros included);
+          kernel 1 once a round that aggregated, one all-reduce each;
+      (b) two gloo ranks sharing the card, 10,000 learners, a 64-learner
+          cohort split over "p": host records ``==`` the unsharded run's,
+          stragglers landing across the split, kernel 1 once a round that
+          aggregated on each rank;
+      (c) two gloo ranks, an S = 8 YoGi sweep on "s" whose early stops
+          repack cells across the boundary: each cell's host records
+          ``==`` the unsharded sweep's, kernel 2 once a rank's batch-round;
+      (d) two gloo ranks, trimmed_mean with 64-row groups: kernel 7 on its
+          ``sort`` variant, once a round that aggregated.
+
+    Params of (b)-(d) are held bit for bit where the cuBLAS probe finds a
+    batched GEMM's matrix the same at every batch count the runs take
+    (each rank trains about half the rows), else within SWEEP_RTOL /
+    SWEEP_ATOL (the sweep phase's gate).  Two ranks sharing one card
+    measure correctness and overhead, not a multi-card speed-up."""
+    from repro_torch.kernels.staleness_agg import ops as saa_ops
+    from repro_torch.kernels.trimmed_agg import ops as trim_ops
+    from repro_torch.sim import SimConfig, Simulator, Substrate
+    from repro_torch.sim.participant_sharding import run_ranks
+    from repro_torch.sweeps import SweepRunner, SweepSpec
+    from repro_torch.quickstart import CAMPAIGNS, COMMON
+    out = {}
+    gen = torch.Generator(device=SHARD_DEVICE).manual_seed(7)
+    counts = (1, 2, 4, 8, 16, 32, 64, 128)
+    probe = gemm_probe(torch, gen, counts)
+    exact = all(all(v.values()) for v in probe.values())
+    out["exact"] = exact
+    gate = ("bit for bit" if exact else
+            f"host records ==, params within rtol {SWEEP_RTOL} / atol {SWEEP_ATOL}")
+    print(f"sharding: cuBLAS batched GEMM probe at R in {counts}: " + "; ".join(
+        f"{g}: differs at R in {[r for r, e in v.items() if not e]}"
+        for g, v in probe.items()) + f"; gate for (b)-(d): {gate}")
+
+    def same_bits(a, b) -> bool:
+        return (a["records"] == b["records"]
+                and bits_equal(torch, a["params"], b["params"])
+                and (a["opt"] is None or all(
+                    bits_equal(torch, a["opt"][k], b["opt"][k])
+                    if a["opt"][k].is_floating_point()
+                    else torch.equal(a["opt"][k], b["opt"][k])
+                    for k in a["opt"])))
+
+    def held(name, got, want):
+        if got["host"] != want["host"]:
+            fail(f"sharding {name}: host records differ from the unsharded run")
+        if got["summary"]["rounds"] != want["summary"]["rounds"]:
+            fail(f"sharding {name}: rounds differ")
+        same = same_bits(got, want)
+        if exact and not same:
+            fail(f"sharding {name}: not bit for bit the unsharded run")
+        diff = (got["params"] - want["params"]).abs().max().item()
+        if not torch.allclose(got["params"], want["params"], rtol=SWEEP_RTOL,
+                              atol=SWEEP_ATOL):
+            fail(f"sharding {name}: params differ from the unsharded run by {diff}")
+        return same, diff
+
+    def launch_gate(name, run, kernel):
+        recs = [types.SimpleNamespace(n_fresh=n, n_stale=0) for n in run["rows"]]
+        want = expected_launches(saa_ops, trim_ops, kernel,
+                                 types.SimpleNamespace(records=recs))
+        if run["launches"] != want:
+            fail(f"sharding {name}: launches {run['launches']}, expected {want}")
+        coll = run["stats"]["collectives"]
+        if coll.get("all_reduce", 0) != run["aggregated"]:
+            fail(f"sharding {name}: {coll} collectives, "
+                 f"{run['aggregated']} rounds aggregated")
+
+    # --- (a) one-rank NCCL group, graphed --------------------------------
+    relay = dict(COMMON, **CAMPAIGNS["RELAY"])
+    t0 = time.perf_counter()
+    a = run_ranks(_shard_rank_nccl, 1, relay, 2, backend=SHARD_NCCL,
+                  timeout=SHARD_TIMEOUT)[0]
+    spawn_a = time.perf_counter() - t0
+    runs = a["runs"]
+    for k in range(0, len(runs), 2):
+        plain, shard = runs[k], runs[k + 1]
+        if not same_bits(shard, plain):
+            fail("sharding (a): the one-rank NCCL run is not bit for bit the "
+                 "unsharded run")
+        st = shard["stats"]
+        if not (st["graphed"] and st["n_pshards"] == 1
+                and st["graph_replays"] == st["rounds"] == len(shard["records"])):
+            fail(f"sharding (a): graphed {st['graphed']}, {st['graph_replays']} "
+                 f"replays over {st['rounds']} rounds, n_pshards {st['n_pshards']}")
+        launch_gate("(a)", shard, APPLY)
+        if set(st["collectives"]) != {"all_reduce"}:
+            fail(f"sharding (a): collectives {st['collectives']}")
+        launches.update(shard["launches"])
+    t_plain, t_shard = runs[-2], runs[-1]
+    out["a"] = {"rounds": t_shard["stats"]["rounds"],
+                "aggregated": t_shard["aggregated"],
+                "launches": t_shard["launches"],
+                "collectives": t_shard["stats"]["collectives"],
+                "graph_replays": t_shard["stats"]["graph_replays"],
+                "graph_captures": [r["stats"]["graph_captures"] for r in runs],
+                "rounds_per_s_sharded": t_shard["stats"]["rounds"] / t_shard["s"],
+                "rounds_per_s_unsharded": t_plain["stats"]["rounds"] / t_plain["s"],
+                "reduce_shape": (1, a["reduce_n"], MAIN_D),
+                "reduce_ms": a["reduce_ms"],
+                "reduce_graph_ms": a["reduce_graph_ms"], "spawn_s": spawn_a}
+    print(f"sharding (a) RELAY, shard_participants=4 on a one-rank NCCL group "
+          f"(clamped to 1 x 1), graphed: records, params bit for bit (int32) the "
+          f"unsharded run's in {len(runs) // 2} pairs; {APPLY} "
+          f"{t_shard['launches'].get(APPLY, 0)} launches == "
+          f"{t_shard['aggregated']} rounds that aggregated == all-reduces "
+          f"{t_shard['stats']['collectives']}; {t_shard['stats']['graph_replays']} "
+          f"replays; rounds/s sharded {out['a']['rounds_per_s_sharded']:.1f} vs "
+          f"unsharded {out['a']['rounds_per_s_unsharded']:.1f} (second pair); "
+          f"all_reduce of (1, {a['reduce_n']}, {MAIN_D}) fp32 "
+          f"{a['reduce_ms']:.4f} ms eager (host clock, 200 calls), "
+          f"{a['reduce_graph_ms']:.4f} ms by graph replay")
+
+    # --- (b)-(d): the unsharded runs here, then two gloo ranks -----------
+    t0 = time.perf_counter()
+    sub = Substrate.build(SimConfig(**SHARD_10K))
+    build_s = time.perf_counter() - t0
+    _timed_run(torch, Simulator(SimConfig(**SHARD_10K), sub,
+                                device=SHARD_DEVICE))   # captures its graphs
+    want_b = _timed_run(torch, Simulator(SimConfig(**SHARD_10K), sub,
+                                         device=SHARD_DEVICE))
+    eager_b = _timed_run(torch, Simulator(SimConfig(**SHARD_10K), sub,
+                                          device=SHARD_DEVICE), eager=True)
+    cells = SweepSpec(**SHARD_SWEEP).expand()
+    _sync(torch)
+    t0 = time.perf_counter()
+    runner = SweepRunner(cells, device=SHARD_DEVICE)
+    res = runner.run()
+    _sync(torch)
+    want_c = {"cells": [_shard_result(torch, r.acct, sim)
+                        for r, sim in zip(res, runner.sims)],
+              "s": time.perf_counter() - t0, "stats": runner.batch_stats}
+    want_d = _timed_run(torch, Simulator(SimConfig(**SHARD_TRIMMED),
+                                         device=SHARD_DEVICE))
+    t0 = time.perf_counter()
+    ranks = run_ranks(_shard_rank_gloo, SHARD_RANKS,
+                      dataclasses.replace(sub, _on_device={}),
+                      backend="gloo", timeout=SHARD_TIMEOUT)
+    spawn_bd = time.perf_counter() - t0
+    out.update(substrate_10k_s=build_s, gloo_spawn_s=spawn_bd)
+
+    # (b)
+    bits_b = []
+    for rank, got in enumerate(ranks):
+        run = got["10k"]
+        same, diff = held(f"(b) rank {rank}", run, want_b)
+        bits_b.append((same, diff))
+        launch_gate(f"(b) rank {rank}", run, APPLY)
+        if run["stats"]["n_pshards"] != SHARD_RANKS or run["stats"]["graphed"]:
+            fail(f"sharding (b): n_pshards {run['stats']['n_pshards']}, "
+                 f"graphed {run['stats']['graphed']} (gloo runs eagerly)")
+        if run["stats"]["cross_shard_landings"] < 1:
+            fail("sharding (b): no straggler landed across the split")
+    b0 = ranks[0]["10k"]
+    launches.update(b0["launches"])
+    wall_b = max(r["10k"]["s"] for r in ranks)
+    out["b"] = {"rounds": b0["stats"]["rounds"], "aggregated": b0["aggregated"],
+                "launches": b0["launches"], "collectives": b0["stats"]["collectives"],
+                "cross_shard_landings": b0["stats"]["cross_shard_landings"],
+                "bitwise": [s for s, _ in bits_b],
+                "max_abs_diff": max(d for _, d in bits_b),
+                "rounds_per_s_sharded": b0["stats"]["rounds"] / wall_b,
+                "rounds_per_s_unsharded": want_b["stats"]["rounds"] / want_b["s"],
+                "rounds_per_s_unsharded_eager":
+                    eager_b["stats"]["rounds"] / eager_b["s"],
+                "reduce_shape": (1, ranks[0]["reduce_n"], MAIN_D),
+                "reduce_ms": ranks[0]["reduce_ms"]}
+    print(f"sharding (b) 10,000 learners, n_target 64, on {SHARD_RANKS} gloo ranks "
+          f"sharing the card: host records == the unsharded run's on every rank, "
+          f"params bit for bit {out['b']['bitwise']} (max abs diff "
+          f"{out['b']['max_abs_diff']:.3g}); {APPLY} {b0['launches'].get(APPLY, 0)} "
+          f"launches a rank == {b0['aggregated']} rounds that aggregated; "
+          f"collectives {b0['stats']['collectives']}; cross-shard landings "
+          f"{out['b']['cross_shard_landings']}; rounds/s sharded "
+          f"{out['b']['rounds_per_s_sharded']:.2f} (eager) vs unsharded "
+          f"{out['b']['rounds_per_s_unsharded']:.2f} graphed, "
+          f"{out['b']['rounds_per_s_unsharded_eager']:.2f} eager (warm runs); "
+          f"gloo all_reduce of "
+          f"(1, {ranks[0]['reduce_n']}, {MAIN_D}) fp32 {ranks[0]['reduce_ms']:.3f} ms")
+
+    # (c)
+    bits_c, repacks = [], []
+    for rank, got in enumerate(ranks):
+        sw = got["sweep"]
+        if sw["mesh"] != {"s": SHARD_RANKS, "p": 1}:
+            fail(f"sharding (c): mesh {sw['mesh']}")
+        for k, (g, w) in enumerate(zip(sw["cells"], want_c["cells"])):
+            bits_c.append(held(f"(c) rank {rank} cell {cells[k].name}", g, w))
+        reduces = sum(b["collectives"].get("all_reduce", 0) for b in sw["stats"])
+        kernel = sw["launches"].get(AGG, 0)
+        if not (kernel == reduces > 0 and sw["launches"].get(
+                saa_ops.launch_key(AGG, "cluster"), 0) == kernel
+                and set(sw["launches"]) == {AGG, saa_ops.launch_key(AGG, "cluster")}):
+            fail(f"sharding (c) rank {rank}: launches {sw['launches']}, "
+                 f"{reduces} round all-reduces")
+        repacks.append(sum(b["dispatches"]["repack"] for b in sw["stats"]))
+    if len(set(repacks)) != 1 or repacks[0] < 1:
+        fail(f"sharding (c): repacks by rank {repacks}: the early stops must "
+             "repack the sweep across the boundary")
+    c0 = ranks[0]["sweep"]
+    launches.update(c0["launches"])
+    wall_c = max(r["sweep"]["s"] for r in ranks)
+    out["c"] = {"cells": len(cells), "repacks": repacks[0],
+                "launches": c0["launches"],
+                "collectives": [b["collectives"] for b in c0["stats"]],
+                "bitwise": sum(s for s, _ in bits_c), "compared": len(bits_c),
+                "max_abs_diff": max(d for _, d in bits_c),
+                "wall_s_sharded": wall_c, "wall_s_unsharded": want_c["s"]}
+    print(f"sharding (c) S = {len(cells)} YoGi sweep on {SHARD_RANKS} x 1 (gloo): "
+          f"every cell's host records == the unsharded sweep's on every rank, "
+          f"{out['c']['bitwise']} of {len(bits_c)} cell runs bit for bit (max abs "
+          f"diff {out['c']['max_abs_diff']:.3g}); {repacks[0]} repack(s) across the "
+          f"boundary; rank 0: {AGG} {c0['launches'].get(AGG, 0)} launches == its "
+          f"batch-round all-reduces; collectives by batch "
+          f"{out['c']['collectives']}; wall {wall_c:.2f} s sharded vs "
+          f"{want_c['s']:.2f} s unsharded")
+
+    # (d)
+    bits_d = []
+    for rank, got in enumerate(ranks):
+        run = got["trimmed"]
+        bits_d.append(held(f"(d) rank {rank}", run, want_d))
+        launch_gate(f"(d) rank {rank}", run, TRIM)
+        if not run["launches"].get(saa_ops.launch_key(TRIM, "sort")):
+            fail(f"sharding (d): kernel 7's sort variant never launched "
+                 f"({run['launches']})")
+    d0 = ranks[0]["trimmed"]
+    launches.update(d0["launches"])
+    out["d"] = {"rounds": d0["stats"]["rounds"], "aggregated": d0["aggregated"],
+                "rows": d0["rows"], "launches": d0["launches"],
+                "collectives": d0["stats"]["collectives"],
+                "bitwise": [s for s, _ in bits_d],
+                "max_abs_diff": max(d for _, d in bits_d),
+                "rounds_per_s_sharded": d0["stats"]["rounds"] / max(
+                    r["trimmed"]["s"] for r in ranks),
+                "rounds_per_s_unsharded": want_d["stats"]["rounds"] / want_d["s"]}
+    print(f"sharding (d) trimmed_mean, groups of {min(d0['rows'])}-{max(d0['rows'])} "
+          f"rows, on {SHARD_RANKS} gloo ranks: host records == the unsharded run's, "
+          f"params bit for bit {out['d']['bitwise']}; {TRIM} launches "
+          f"{d0['launches']} == rounds that aggregated ({d0['aggregated']}), the "
+          f"sort variant on a live path; rounds/s sharded "
+          f"{out['d']['rounds_per_s_sharded']:.2f} vs unsharded "
+          f"{out['d']['rounds_per_s_unsharded']:.2f}")
+    print("sharding: two ranks sharing one card measure correctness and the "
+          "collectives' overhead, not a multi-card speed-up (one card here)")
+    return out
+
+
 def lm_cells() -> dict:
     """The LM phase's cells: name -> (SimConfig, kernel).  The example's
     cell (``python -m repro_torch.federated_lm``: tokens_skew, 32 learners,
@@ -4243,6 +4668,9 @@ def main():
     # --- the sweep paths: lockstep batches of S cells --------------------
     report["sweeps"], profile_sweeps = sweep_paths(torch, gen, checks, launches)
     lap("sweep paths")
+    # --- sharding: ranks of a torch.distributed group --------------------
+    report["sharding"] = sharding_paths(torch, launches)
+    lap("sharding")
     # --- the model zoo's serve path at full width -----------------------
     serve = serve_paths(torch)
     launches.update(serve.pop("launches"))

@@ -127,7 +127,7 @@ def _restore_sim(ps: dict, substrate_cache: Optional[dict] = None,
 def build_resumed_pipeline(payload: dict, progress: bool = False, *,
                            device=None, checkpoint_path: Optional[str] = None,
                            checkpoint_every: int = 0, checkpoint_wrap=None,
-                           telemetry=None):
+                           telemetry=None, mesh=None):
     """A RoundPipeline rebuilt mid-run from a ``kind == "pipeline"``
     snapshot.  Its params, YoGi state and counters come from the restored
     Simulators (and fill an idle graph workspace's buffers, as any new
@@ -136,7 +136,15 @@ def build_resumed_pipeline(payload: dict, progress: bool = False, *,
     and each stale row goes back into a slot in its saved order (slot ids
     never reach a value).  A ``telemetry`` session logging into the
     crashed run's directory is truncated back to the snapshot's round-log
-    offset first; the cells keep their labels."""
+    offset first; the cells keep their labels.
+
+    A sharded pipeline (``mesh``, or the cells' ``shard_participants``)
+    is rebuilt on every rank from the same snapshot: the slot accounts
+    take its capacity, each stale row a slot on its cell's s-shard and on
+    the p-shard that held it (p-shard 0 when the snapshot came from
+    another participant split), and each rank keeps its own shard's rows.
+    A snapshot of a sharded run resumes unsharded, and one of an
+    unsharded run sharded: no value depends on where a row lives."""
     from repro_torch.sim.pipeline import RoundPipeline
     sub_cache: dict = {}
     sims = [_restore_sim(ps, sub_cache, device) for ps in payload["sims"]]
@@ -147,19 +155,46 @@ def build_resumed_pipeline(payload: dict, progress: bool = False, *,
                          checkpoint_every=checkpoint_every,
                          checkpoint_wrap=checkpoint_wrap,
                          start_round=int(payload["next_round"]),
-                         telemetry=telemetry, labels=payload.get("labels"))
+                         telemetry=telemetry, labels=payload.get("labels"),
+                         mesh=mesh)
     pipe.done = list(payload["done"])
     cache, capacity = pipe.cache, pipe.cache.capacity
     entries = [f for sim in sims for f in sim.stale_cache]
-    cache.reserve(int(payload["cache_capacity"]))
-    slots = cache.alloc(len(entries))
+    if pipe.mesh is None:
+        cache.reserve(int(payload["cache_capacity"]))
+        slots = cache.alloc(len(entries))
+        rows = [f.delta for f in entries]
+        for f, slot in zip(entries, slots):
+            f.delta = int(slot)
+    else:
+        slots, rows = _reseat_sharded(pipe, payload)
     if cache.capacity != capacity and pipe.graphs is not None:
         cache.rows = pipe.graphs.cache_rows(cache.rows)   # as _schedule does
-    if entries:
-        cache.put(slots, torch.stack([f.delta for f in entries]))
-    for f, slot in zip(entries, slots):
-        f.delta = int(slot)
+    if slots:
+        cache.put(slots, torch.stack(rows))
     return pipe
+
+
+def _reseat_sharded(pipe, payload) -> tuple:
+    """Give every stale row of ``payload`` a slot in ``pipe``'s sharded
+    accounts (see ``build_resumed_pipeline``); returns (this rank's slots,
+    their rows)."""
+    mesh, acc = pipe.mesh, pipe.accounts
+    acc.reserve(int(payload["cache_capacity"]))
+    same_p = payload.get("mesh") is not None and payload["mesh"][1] == mesh.n_p
+    slots, rows = [], []
+    for i, (sim, ps) in enumerate(zip(pipe.sims, payload["sims"])):
+        shards = ps.get("stale_shards") if same_p else None
+        for k, f in enumerate(sim.stale_cache):
+            flat = (pipe.placement.shard_of[i] * mesh.n_p
+                    + (shards[k] % mesh.n_p if shards else 0))
+            slot = acc.alloc(flat, 1)[0][0]
+            if flat == mesh.rank:
+                slots.append(slot)
+                rows.append(f.delta)
+            f.delta = (flat, slot)
+    pipe.cache.reserve(acc.capacity)
+    return slots, rows
 
 
 def resume_run(path: str, progress: bool = False, *, device=None,

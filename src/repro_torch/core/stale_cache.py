@@ -1,5 +1,5 @@
-"""Device-resident stale-update cache (SAA straggler store); port of the
-single-tensor half of ``repro.core.stale_cache``.
+"""Device-resident stale-update cache (SAA straggler store) and the sharded
+cache's slot accounts; port of ``repro.core.stale_cache``.
 
 The rows live on the device: a ``(capacity + 1, D)`` fp32 tensor whose last
 row is a scratch slot, plus host-side slot accounting (free list + insertion
@@ -114,3 +114,83 @@ class DeviceStaleCache:
     def gather(self, slots) -> np.ndarray:
         idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.rows.device)
         return self.rows[idx].cpu().numpy()
+
+
+class ShardedSlotAccounts:
+    """Host slot accounting of a *sharded* stale cache (the reference's
+    ``ShardedSlotAccounts``).
+
+    The sharded round pipeline runs one process per flat ``(s, p)`` shard
+    (``n_shards = n_s * n_p``, s-major; ``repro_torch.sim.
+    participant_sharding``), and each holds the ``(capacity + 1, D)`` rows
+    of its own slot space ``[0, capacity)`` plus its scratch row at index
+    ``capacity``.  Every process runs these accounts for every shard (they
+    read no update value), so all agree on every slot without a message.
+    A straggler's slot lives on the shard that trained its row.
+
+    Capacity is uniform across shards (every shard's rows tensor has one
+    shape): when one shard's allocation outgrows its free list, ``alloc``
+    doubles ``capacity`` for *every* shard and reports it through the
+    returned ``grew`` flag.  Growth appends slots, so existing local slot
+    ids stay valid.  Each shard's discipline is ``DeviceStaleCache``'s:
+    the same ``_SlotSpace``, nothing evicted.
+    """
+
+    def __init__(self, n_shards: int, capacity: int = 64):
+        if n_shards < 1 or capacity < 1:
+            raise ValueError("n_shards and capacity must be >= 1")
+        self.n_shards = int(n_shards)
+        self.capacity = int(capacity)
+        self._spaces = [_SlotSpace(self.capacity)
+                        for _ in range(self.n_shards)]
+        self._seq = 0
+        self.grow_events = 0
+
+    def __len__(self) -> int:
+        return sum(len(sp) for sp in self._spaces)
+
+    @property
+    def trash_slot(self) -> int:
+        """Each shard's local scratch row index."""
+        return self.capacity
+
+    def shard_len(self, shard: int) -> int:
+        return len(self._spaces[shard])
+
+    def _grow(self) -> None:
+        old_c = self.capacity
+        self.capacity = 2 * old_c
+        for sp in self._spaces:
+            sp.extend(old_c, self.capacity)
+        self.grow_events += 1
+
+    def reserve(self, capacity: int) -> None:
+        """Grow until every shard holds at least ``capacity`` slots (a
+        resumed run takes its snapshot's capacity)."""
+        while self.capacity < capacity:
+            self._grow()
+
+    def alloc(self, shard: int, k: int) -> tuple:
+        """Reserve ``k`` local slots on ``shard``; returns (slots, grew)."""
+        grew = False
+        while len(self._spaces[shard].free) < k:
+            self._grow()
+            grew = True
+        slots = []
+        for _ in range(k):
+            slots.append(self._spaces[shard].take(self._seq))
+            self._seq += 1
+        return slots, grew
+
+    def free(self, shard: int, slots) -> None:
+        for s in slots:
+            self._spaces[shard].release(s)
+
+    def occupied(self, shard: int) -> list:
+        """Occupied local slot ids on ``shard`` in insertion order."""
+        return list(self._spaces[shard].order)
+
+    def flat_index(self, shard: int, slot: int) -> int:
+        """Row index of (shard, local slot) in the flattened
+        ``(n_shards * (capacity + 1), D)`` view of the shards' rows."""
+        return shard * (self.capacity + 1) + slot

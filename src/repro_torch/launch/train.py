@@ -26,7 +26,8 @@ Two cohort strategies, as the reference's:
 Each keeps the reference's own Lam formula (``vmap``: ||u_hat - u_s||^2 /
 ((n_F+1)^2 ||u_hat||^2); ``stream``: its inner-product form), not
 ``core.staleness.deviation_scores``.  ``param_specs`` (the reference's
-sharding hints) are no-ops on one card: only ``None`` is taken.
+parameter layout over its pod mesh) take only ``None``: the pod launch
+layer's mesh and dry run are ROADMAP.md queue 1 item 15.
 
     python -m repro_torch.launch.train [--arch internlm2-1.8b] [--rounds 50]
         [--participants 4] [--local-batch 2] [--seq 64] [--rule relay]
@@ -77,9 +78,9 @@ def _zeros_like_f32(tree):
 def _no_specs(param_specs) -> None:
     if param_specs is not None:
         raise NotImplementedError(
-            "param_specs (sharding hints for a device mesh) are not ported to "
-            "repro_torch: one card has no mesh; pass None (ROADMAP.md queue 1 "
-            "item 14)")
+            "param_specs (a parameter layout over a pod mesh) are not ported "
+            "to repro_torch yet: they belong to the pod launch layer's mesh "
+            "and dry run; pass None (ROADMAP.md queue 1 item 15)")
 
 
 def _relay_weights(fresh, tau, lam, *, rule, beta):

@@ -17,13 +17,16 @@ the same bits every run on the card:
 - top-k ranks the experts by comparisons: equal gates keep the lower
   expert index first, as ``jax.lax.top_k`` does.
 
-``shard_hints`` is a no-op on one device and is not ported.
+The dispatch buffers pass through ``shard_hints.constrain_expert_dim``
+where the reference pins them (the identity unless a pod layout is
+configured).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import shard_hints
 from repro_torch.models.layers import dense_init, mlp, mlp_init
 
 
@@ -116,9 +119,11 @@ def moe_forward(params, x, *, n_experts: int, top_k: int,
                   (0, 0, 0, 1))                               # (G, g*k+1, d)
     expert_in = torch.gather(x_rep, 1, src[..., None].expand(
         G, n_experts * cap, d)).reshape(G, n_experts, cap, d)  # (G,E,C,d)
+    expert_in = shard_hints.constrain_expert_dim(expert_in, 1)
     gate = F.silu(torch.einsum("gecd,edf->gecf", expert_in, params["w_gate"]))
     up = torch.einsum("gecd,edf->gecf", expert_in, params["w_up"])
     expert_out = torch.einsum("gecf,efd->gecd", gate * up, params["w_down"])
+    expert_out = shard_hints.constrain_expert_dim(expert_out, 1)
 
     out_pad = F.pad(expert_out.reshape(G, n_experts * cap, d), (0, 0, 0, 1))
     out_tok = torch.gather(out_pad, 1, place[..., None].expand(G, g * k, d))

@@ -11,8 +11,10 @@ The layers are an optional unrolled *prefix* followed by a periodic
 *super-block* repeated ``n_rep`` times.  The reference ``lax.scan``s the
 super-block over ``params["stack"]``, whose leaves carry a leading ``n_rep``
 axis; the port keeps that tree (so weights carry across by key path) and
-loops over the axis in Python.  ``shard_hints`` is not ported (a no-op on
-one device; ROADMAP.md queue 1 item 14).  With ``cfg.remat`` and grad mode
+loops over the axis in Python.  The activations pass through
+``shard_hints.constrain_activations`` where the reference pins them (the
+identity unless a pod layout is configured, which raises: ROADMAP.md
+queue 1 item 15).  With ``cfg.remat`` and grad mode
 on, each repetition of the super-block runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): the
 backward recomputes its activations instead of keeping them.
@@ -35,6 +37,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import frontends as fr
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mb
+from repro_torch.models import shard_hints
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rw
 from repro_torch.device import resolve_device
@@ -374,7 +377,7 @@ def _logits(cfg, params, x):
 def forward(cfg: ModelConfig, params, batch, *, return_states: bool = False):
     """Returns (final hidden, aux_loss, states)."""
     prefix, specs, n_rep = cfg.segment_plan()
-    x = _embed_inputs(cfg, params, batch)
+    x = shard_hints.constrain_activations(_embed_inputs(cfg, params, batch))
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
 
@@ -393,7 +396,7 @@ def forward(cfg: ModelConfig, params, batch, *, return_states: bool = False):
             aux_acc = aux_acc + aux
             if return_states:
                 states[f"sub{i}"] = st
-        return x, aux_acc, states
+        return shard_hints.constrain_activations(x), aux_acc, states
 
     # activation checkpointing, as the reference's jax.checkpoint(superblock):
     # a repetition keeps only its inputs and recomputes its forward in the

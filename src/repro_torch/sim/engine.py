@@ -25,8 +25,11 @@ rows screened before they are weighted, the apply skipped below
 the round stages below — is numpy with the reference's RNG draw order, so
 for the same config, seed and initial weights every host decision (cohort,
 arrival schedule, fresh/straggler split, stale landings, APT targets,
-resource accounting) equals the reference's.  Configurations outside the
-slice raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+resource accounting) equals the reference's.  ``shard_participants``
+runs the fused pipeline over a round mesh of the default process group's
+ranks (``repro_torch.sim.participant_sharding``; one rank without a
+group).  Configurations outside the slice raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -126,6 +129,14 @@ class SimConfig:
         if self.aggregator in ("fedavg", "yogi"):
             self.server_opt = self.aggregator
             self.aggregator = "saa"
+        if self.shard_participants and not (self.fast_path
+                                            and self.fused_rounds):
+            # the reference raises this at run(); here before the
+            # unported legacy engine's error, so the flag is never dropped
+            raise ValueError(
+                "shard_participants requires the fused fast path "
+                "(fast_path=True, fused_rounds=True): the per-stage and "
+                "legacy substrates have no sharded round")
         for unported, what, item in _UNPORTED:
             if unported(self):
                 raise NotImplementedError(
@@ -147,7 +158,6 @@ class SimConfig:
 # ports it)
 _UNPORTED = (
     (lambda c: not c.fast_path, "the legacy pytree engine (fast_path=False)", 15),
-    (lambda c: bool(c.shard_participants), "participant sharding", 14),
 )
 
 

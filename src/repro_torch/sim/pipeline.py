@@ -1,5 +1,6 @@
 """Device-resident round pipeline for S >= 1 lockstep simulations, in
-K-round chunks (port of the unsharded case of ``repro.sim.pipeline``).
+K-round chunks, optionally sharded over a round mesh of ranks (port of
+``repro.sim.pipeline``).
 
 ``RoundPipeline`` drives one Simulator (``Simulator.run()`` passes
 ``[self]``) or a sweep batch of compatible ones (``pipeline_key``) in
@@ -107,6 +108,47 @@ made and every server operation is columnwise.  Attacked and robust
 batches keep the true D, as the reference does: their row norms, means and
 distances reduce over the last axis, and reducing over the pad would
 change their bits.
+
+Sharding (``mesh=``, or ``SimConfig.shard_participants``): one process a
+shard of a ``("s", "p")`` round mesh of ranks
+(``repro_torch.sim.participant_sharding``).  Every rank runs every cell's
+host stages; then
+
+  sweep axis "s": the cells are placed in balanced contiguous blocks
+  (``repro_torch.sweeps.sharding.Placement``), and a rank holds and steps
+  only its block's params, YoGi rows and counters (rows ``slot``, its
+  scratch row the last);
+  participant axis "p": each s-block's packed survivor rows split into
+  balanced contiguous blocks (``split_balanced``; ``RoundWork.rowq``), and
+  a rank trains only its own, scatters its stragglers into its own slot
+  space of the sharded cache (``ShardedSlotAccounts``, a slot a
+  ``(flat shard, slot)`` pair) and gathers only the operand columns it
+  owns: a fresh column whose row it trained, a landing whose slot it
+  holds.  Its other columns take ``-0.0`` and ONE ``all_reduce(SUM)`` over
+  its p-group rebuilds the operand.  ``x + (-0.0)`` is ``x`` for every
+  fp32 ``x``, signed zeros included, so the reduced operand is bitwise
+  the unsharded gather in any summation order (the reference fills with
+  ``+0.0``, which turns an owned ``-0.0`` into ``+0.0``); the invalid
+  columns then take ``+0.0`` as on the unsharded route.  Everything after
+  the reduction (attack, lane, screen, weights, kernels 1, 2 or 7, the
+  apply) runs identically on the p-group's ranks.
+
+That reduction is the round's one collective (``stats.collectives``
+counts every collective by kind).  The others come at chunk boundaries
+and are pure data movement: ``eval`` (an all-gather of the s-blocks'
+accuracies), ``feedback`` (of the trained rows' l2 stats, for a
+``needs_feedback`` selector), ``lane`` (level 2's lane rows), ``repack``
+(rows moving between s-ranks when early stops shrink the placement),
+``snapshot`` and ``finalize`` (params, YoGi state, counters, and for a
+snapshot the cache rows); every rank enters them in the same order.  A
+one-rank s-axis or grid exchanges nothing; the round's reduction is made
+on any process group, a one-rank one included; without a process group
+nothing is exchanged at all.  A rank's tensors keep their first shape through a
+repack (the live cells move, in place), so a graphed round reads the
+buffers its graphs were captured on.  Rounds are graphed under NCCL (a
+one-rank group included: the reduction is captured in the graph) and
+run eagerly under gloo, which cannot be captured.  After ``finalize``
+every rank's Simulators hold every cell's params.
 """
 from __future__ import annotations
 
@@ -115,13 +157,15 @@ from collections import Counter
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.core.aggregation import (bucket_block, flat_dim,
                                           no_stale_aggregate, screen_rows,
                                           weights_and_aggregate_by_id,
                                           yogi_apply_flat, yogi_init_flat)
-from repro_torch.core.stale_cache import DeviceStaleCache
+from repro_torch.core.stale_cache import (DeviceStaleCache,
+                                          ShardedSlotAccounts)
 from repro_torch.core.staleness import RULE_ID
 from repro_torch.faults import InjectedCrash, attack_key, apply_attack
 from repro_torch.kernels.staleness_agg import ops as saa_ops
@@ -130,10 +174,13 @@ from repro_torch.learners import model_key
 from repro_torch.robust import robust_key
 from repro_torch.robust.aggregators import robust_sweep
 from repro_torch.selection.registry import selector_key
-from repro_torch.sim.engine import (SharedData, _InFlight, agg_lids,
-                                   pack_rows, train_rows)
+from repro_torch.sim.engine import (ROW_BLOCK, SharedData, _InFlight,
+                                   agg_lids, pack_rows, train_rows)
 from repro_torch.sim.graphs import (Bucket, RoundGraphs, acquire, release,
                                    upload)
+from repro_torch.sim.participant_sharding import (all_gather, as_round_mesh,
+                                                  participant_mesh,
+                                                  split_balanced)
 from repro_torch.telemetry import TelemetrySession
 from repro_torch.telemetry.registry import CounterView, MetricsRegistry
 from repro_torch.telemetry.schema import (DISPATCH_KINDS, GUARD_COUNTERS,
@@ -179,8 +226,13 @@ class PipelineStats:
     and ``as_dict()`` holds the totals so far.  The graph counters are the
     pipeline's own: ``graphed``, ``graph_captures``, ``graph_replays``,
     ``graph_capture_s`` (host seconds in warm-ups and captures) and
-    ``warmup_launches``.  ``cross_shard_landings`` stays 0: the port runs
-    unsharded."""
+    ``warmup_launches``; so are ``collectives`` (a ``Counter`` by kind:
+    ``all_reduce``, the round's, one a round that aggregates on this
+    rank's s-block; ``eval``, ``feedback``, ``lane``, ``repack``,
+    ``snapshot``, ``finalize``) and the mesh's ``n_shards`` ("s") and
+    ``n_pshards`` ("p").  ``cross_shard_landings`` counts the landings
+    whose slot lies on another p-shard than some other column of its
+    group: operand rows the reduction really merges across ranks."""
 
     GUARD_KEYS = tuple(k[len("guard_"):] for k in GUARD_COUNTERS)
 
@@ -192,7 +244,8 @@ class PipelineStats:
     feedback_fetches = _registry_counter("feedback_fetches")
 
     def __init__(self, registry: MetricsRegistry = None,
-                 rounds_per_dispatch: int = 1, graphed: bool = False):
+                 rounds_per_dispatch: int = 1, graphed: bool = False,
+                 n_shards: int = 1, n_pshards: int = 1):
         self.registry = (registry if registry is not None
                          else MetricsRegistry())
         for name in PIPELINE_COUNTERS:
@@ -206,6 +259,8 @@ class PipelineStats:
         self.graph_replays = 0
         self.graph_capture_s = 0.0
         self.warmup_launches = Counter()
+        self.collectives = Counter()
+        self.n_shards, self.n_pshards = n_shards, n_pshards
 
     def as_dict(self) -> dict:
         return {"rounds": self.rounds,
@@ -221,7 +276,9 @@ class PipelineStats:
                 "graph_captures": self.graph_captures,
                 "graph_replays": self.graph_replays,
                 "graph_capture_s": self.graph_capture_s,
-                "warmup_launches": dict(self.warmup_launches)}
+                "warmup_launches": dict(self.warmup_launches),
+                "n_shards": self.n_shards, "n_pshards": self.n_pshards,
+                "collectives": dict(self.collectives)}
 
 
 @dataclasses.dataclass
@@ -242,6 +299,11 @@ class RoundWork:
     sizes: list = None   # their operand rows
     bucket: Bucket = None
     block: object = None  # the packed indices (host numpy, then device)
+    # sharded: (cell, plan row) -> (p-shard, local row) of every survivor,
+    # the trained rows of each flat shard, and each s-shard's groups
+    rowq: dict = None
+    shard_rows: list = None
+    shard_groups: list = None
 
 
 def _quarantine_frees(order, scheds) -> list:
@@ -288,7 +350,7 @@ class RoundPipeline:
     def __init__(self, sims, progress: bool = False, *,
                  checkpoint_path=None, checkpoint_every: int = 0,
                  checkpoint_wrap=None, start_round: int = 0, telemetry=None,
-                 labels=None):
+                 labels=None, mesh=None):
         sims = list(sims) if isinstance(sims, (list, tuple)) else [sims]
         cfg0 = sims[0].cfg
         for sim in sims:
@@ -330,54 +392,85 @@ class RoundPipeline:
         self.d_pad = (self.d + (-self.d) % saa_ops.D_BLK
                       if self.kernel_route else self.d)
         self.s = s = len(sims)
-        # (S + 1, d_pad): the kernels' (S, D) params operand, a row a cell,
-        # and the scratch row that padding groups read and write
-        self.params = torch.zeros((s + 1, self.d_pad), dtype=torch.float32,
+        # the round mesh (None: unsharded); an explicit mesh and the
+        # config's flag together are ambiguous, as in the reference
+        if mesh is not None and cfg0.shard_participants:
+            raise ValueError(
+                "ambiguous participant sharding: an explicit mesh was passed "
+                "while SimConfig.shard_participants is set; configure one or "
+                "the other (SweepRunner callers: use "
+                "SweepRunner(shard_participants=))")
+        if mesh is None and cfg0.shard_participants:
+            mesh = participant_mesh(cfg0.shard_participants)
+        self.mesh = mesh = None if mesh is None else as_round_mesh(mesh)
+        if mesh is None:
+            self.placement, self.accounts = None, None
+            mine, slot = range(s), (lambda i: i)
+            self.scratch = s
+        else:
+            from repro_torch.sweeps.sharding import Placement
+            self.placement = Placement.build(range(s), mesh.n_s)
+            mine = self.placement.shards[mesh.s_index]
+            slot = self.placement.slot_of.__getitem__
+            self.scratch = self.placement.s_loc
+            self._saved = {}       # early-stopped cells' rows after a repack
+        rows = self.scratch + 1
+        # (rows, d_pad): a row a cell of this rank's block (every cell
+        # unsharded), then the scratch row that padding groups read and
+        # write; the kernels' (S, D) params operand
+        self.params = torch.zeros((rows, self.d_pad), dtype=torch.float32,
                                   device=dev)
-        for i, sim in enumerate(sims):
-            self.params[i, :self.d] = sim.flat_params
-        self.cache = DeviceStaleCache(
-            self.d_pad, capacity=max(sim.cfg.stale_cache_capacity
-                                     for sim in sims), device=dev)
+        for i in mine:
+            self.params[slot(i), :self.d] = sims[i].flat_params
+        capacity = max(sim.cfg.stale_cache_capacity for sim in sims)
+        # this rank's cache rows; sharded, every shard's slot accounts
+        self.cache = DeviceStaleCache(self.d_pad, capacity=capacity,
+                                      device=dev)
+        if mesh is not None:
+            self.accounts = ShardedSlotAccounts(mesh.size, capacity)
         self.yogi = cfg0.server_opt == "yogi"
         if self.yogi:
             # each cell's YoGi state (a resumed run's restored one), the
-            # scratch row a fresh state
+            # other rows a fresh state
             st = yogi_init_flat(self.d, device=dev, width=self.d_pad)
-            self.opt_state = {"m": st["m"].repeat(s + 1, 1),
-                              "v": st["v"].repeat(s + 1, 1),
-                              "t": torch.zeros(s + 1, dtype=torch.int32,
+            self.opt_state = {"m": st["m"].repeat(rows, 1),
+                              "v": st["v"].repeat(rows, 1),
+                              "t": torch.zeros(rows, dtype=torch.int32,
                                                device=dev)}
-            for i, sim in enumerate(sims):
+            for i in mine:
                 for k in ("m", "v"):
-                    self.opt_state[k][i, :self.d] = sim.flat_opt_state[k]
-                self.opt_state["t"][i] = sim.flat_opt_state["t"]
+                    self.opt_state[k][slot(i), :self.d] = \
+                        sims[i].flat_opt_state[k]
+                self.opt_state["t"][slot(i)] = sims[i].flat_opt_state["t"]
         else:
             self.opt_state = None
-        # per-cell (beta, server_lr) rows, the scratch row a copy of cell
+        # per-cell (beta, server_lr) rows, the other rows a copy of cell
         # 0's: the kernel's scal operand
-        self._scal = torch.tensor([[sim.cfg.beta, sim.cfg.server_lr]
-                                   for sim in sims + sims[:1]],
+        self._scal = torch.tensor(self._scal_rows(rows, mine, slot),
                                   dtype=torch.float32, device=dev)
         # device counters, from each cell's own (a resumed run's restored
         # ones): robust [rejected, trimmed]; guard [rejected non-finite,
-        # rejected norm, quorum skips], with the scratch row padding
-        # groups add to
-        self.robust_counts = torch.stack([sim.robust_counts
-                                          for sim in sims])
-        self.guard_counts = torch.cat([
-            torch.stack([sim.guard_counts for sim in sims]),
-            torch.zeros((1, 3), dtype=torch.int32, device=dev)])
+        # rejected norm, quorum skips]; padding groups add to the scratch
+        # row
+        self.robust_counts = torch.zeros((rows, 2), dtype=torch.int32,
+                                         device=dev)
+        self.guard_counts = torch.zeros((rows, 3), dtype=torch.int32,
+                                        device=dev)
+        for i in mine:
+            self.robust_counts[slot(i)] = sims[i].robust_counts
+            self.guard_counts[slot(i)] = sims[i].guard_counts
         self.data = SharedData(sims, dev)
         self.fetch_l2s = sims[0]._sel_spec.needs_feedback
         # a feedback selector's stats are device data the next round's
         # selection reads: its batch runs one-round chunks
         self.k_rounds = (1 if self.fetch_l2s
                          else max(1, int(cfg0.rounds_per_dispatch)))
-        graphed = dev.type == "cuda" and self.kernel_route
-        self.stats = PipelineStats(self.telemetry.registry,
-                                   rounds_per_dispatch=self.k_rounds,
-                                   graphed=graphed)
+        graphed = (dev.type == "cuda" and self.kernel_route
+                   and (mesh is None or mesh.graphable))
+        self.stats = PipelineStats(
+            self.telemetry.registry, rounds_per_dispatch=self.k_rounds,
+            graphed=graphed, n_shards=1 if mesh is None else mesh.n_s,
+            n_pshards=1 if mesh is None else mesh.n_p)
         self.stats.init_h2d_bytes += self.params.numel() * 4 + sum(
             t.numel() * t.element_size() for t in (
                 self.data.x_train, self.data.y_train,
@@ -385,14 +478,22 @@ class RoundPipeline:
         # the lane: a (G, LANE_WIDTH) fp32 row block a round, each round's
         # at its position in the chunk, copied to the host once a chunk
         self.lane = (torch.zeros(
-            (self.k_rounds, bucket_block(s, G_BLOCK) if self.kernel_route
-             else s, LANE_WIDTH), dtype=torch.float32, device=dev)
-            if self._lane else None)
+            (self.k_rounds, bucket_block(self.scratch, G_BLOCK)
+             if self.kernel_route else self.scratch, LANE_WIDTH),
+            dtype=torch.float32, device=dev) if self._lane else None)
         # the buffers the graphs read, and the graphs (None: eager rounds)
         self._ws = self._workspace(cfg0) if graphed else None
         self.graphs = self._ws
         self.done = [False] * s
         self._pending_free = []   # freed slots quarantined for one round
+
+    def _scal_rows(self, rows: int, cells, slot) -> list:
+        """(beta, server_lr) of each of ``rows`` params rows: cell ``i``'s
+        at ``slot(i)`` for ``i`` in ``cells``, cell 0's elsewhere."""
+        out = [[self.sims[0].cfg.beta, self.sims[0].cfg.server_lr]] * rows
+        for i in cells:
+            out[slot(i)] = [self.sims[i].cfg.beta, self.sims[i].cfg.server_lr]
+        return out
 
     def _workspace(self, cfg0) -> RoundGraphs:
         """The graphed route's static buffers and graphs: an idle
@@ -407,7 +508,11 @@ class RoundPipeline:
         # the guard, the corruption multiplier and the lane change the
         # round's work: a guarded, faulted or level-2 run never replays
         # another's graphs
-        key = (str(self.device), self.s, self.d, self.d_pad, self.yogi,
+        # a sharded round's graphs hold its p-group's reduction
+        mesh = self.mesh
+        shard = None if mesh is None else (mesh.n_s, mesh.n_p, mesh.rank,
+                                           id(mesh.p_group))
+        key = (str(self.device), self.s, shard, self.d, self.d_pad, self.yogi,
                cfg0.scaling_rule, self.spec, cfg0.local_lr, cfg0.prox_mu,
                cfg0.local_steps, cfg0.local_batch, model_key(cfg0),
                self.guard, self.faulty, self._lane) + tuple(
@@ -521,6 +626,8 @@ class RoundPipeline:
         if self._lane:
             with tel.span("fetch"), record_function("round.lane"):
                 self._log_rounds(works)
+        if self.mesh is not None:
+            self._maybe_repack()
         return works
 
     def _schedule(self, r: int):
@@ -538,13 +645,19 @@ class RoundPipeline:
             return None
         order = list(plans)
         scheds = {i: sims[i]._schedule_round(r, plans[i]) for i in order}
-        if self._pending_free:
-            self.cache.free(self._pending_free)
-        self._pending_free = _quarantine_frees(order, scheds)
         capacity = self.cache.capacity
-        for i in order:
-            if scheds[i].new_stale:
-                scheds[i].slots = self.cache.alloc(len(scheds[i].new_stale))
+        rowq = shard_rows = None
+        if self.mesh is None:
+            if self._pending_free:
+                self.cache.free(self._pending_free)
+            self._pending_free = _quarantine_frees(order, scheds)
+            for i in order:
+                if scheds[i].new_stale:
+                    scheds[i].slots = self.cache.alloc(
+                        len(scheds[i].new_stale))
+        else:
+            rowq, shard_rows = self._place_rows(order, plans)
+            self._alloc_sharded(order, scheds, rowq)
         if self.cache.capacity != capacity:
             self.stats.dispatches["cache_grow"] += 1
             if self._ws is not None:
@@ -562,7 +675,46 @@ class RoundPipeline:
         occ = ({i: len(sims[i].stale_cache) + (
             len(scheds[i].new_stale) if self.fetch_l2s else 0)
             for i in order} if self._lane else None)
-        return RoundWork(r, order, plans, scheds, recs, occ)
+        return RoundWork(r, order, plans, scheds, recs, occ, rowq=rowq,
+                         shard_rows=shard_rows)
+
+    def _place_rows(self, order, plans) -> tuple:
+        """The round's participant-row placement: each s-shard's packed
+        survivor rows (its cells in batch order, each cell's survivors in
+        plan order, as the unsharded packing) split into balanced
+        contiguous blocks over the p-shards.  Returns ((cell, plan row) ->
+        (p-shard, local row), each flat shard's rows in local order)."""
+        mesh, shard_of = self.mesh, self.placement.shard_of
+        rowq, shard_rows = {}, []
+        for j in range(mesh.n_s):
+            rows_j = [(i, int(row)) for i in order if shard_of[i] == j
+                      for row in self.sims[i].survivors(plans[i])[0]]
+            off = 0
+            for q, size in enumerate(split_balanced(len(rows_j), mesh.n_p)):
+                block = rows_j[off:off + size]
+                for loc, key in enumerate(block):
+                    rowq[key] = (q, loc)
+                shard_rows.append(block)
+                off += size
+        return rowq, shard_rows
+
+    def _alloc_sharded(self, order, scheds, rowq) -> None:
+        """Free the previous round's quarantined slots, quarantine this
+        round's, and give each new straggler a slot on the flat shard that
+        trains its row this round (later rounds gather it there, wherever
+        its cell's rows are then); a grown capacity grows this rank's
+        rows."""
+        acc, n_p = self.accounts, self.mesh.n_p
+        for flat, slot in self._pending_free:
+            acc.free(flat, [slot])
+        self._pending_free = _quarantine_frees(order, scheds)
+        for i in order:
+            sc, j = scheds[i], self.placement.shard_of[i]
+            sc.slots = []
+            for row, _l, _a, _d in sc.new_stale:
+                flat = j * n_p + rowq[(i, int(row))][0]
+                sc.slots.append((flat, acc.alloc(flat, 1)[0][0]))
+        self.cache.reserve(acc.capacity)
 
     @staticmethod
     def _feedback(sim, r, sched, l2s) -> None:
@@ -577,13 +729,26 @@ class RoundPipeline:
         """The round's one device-to-host copy of the l2 stats, then each
         cell's feedback in batch order."""
         self.stats.feedback_fetches += 1
+        mesh = self.mesh
+        if l2 is not None and mesh is not None:
+            # every rank's trained rows, (flat shard, local row)
+            if mesh.group is not None:
+                self.stats.collectives["feedback"] += 1
+            l2 = torch.stack(all_gather(l2, mesh.group))
         l2_host = None if l2 is None else l2.cpu().numpy()
         for i in work.order:
             sim, plan = self.sims[i], work.plans[i]
             l2s = np.zeros(plan.k, np.float32)      # by plan row
             surv = sim.survivors(plan)[0]
             if l2_host is not None and len(surv):
-                l2s[surv] = l2_host[work.first[i]:work.first[i] + len(surv)]
+                if mesh is None:
+                    lo = work.first[i]
+                    l2s[surv] = l2_host[lo:lo + len(surv)]
+                else:
+                    j = self.placement.shard_of[i] * mesh.n_p
+                    at = [work.rowq[(i, int(row))] for row in surv]
+                    l2s[surv] = l2_host[[j + q for q, _ in at],
+                                        [loc for _, loc in at]]
             self._feedback(sim, work.r, work.scheds[i], l2s)
 
     def _log_rounds(self, works) -> None:
@@ -591,10 +756,19 @@ class RoundPipeline:
         event a live cell and round (``TelemetrySession.round_event``),
         into the session's round log and the cell's ``round_events``.  A
         cell without a group that round gets its host fields and zeros."""
-        lane = self.lane[:len(works)].cpu().numpy()
-        self.stats.d2h_bytes += lane.nbytes
+        lane = self.lane[:len(works)]
+        mesh = self.mesh
+        if mesh is not None and mesh.s_group is not None:
+            # the other s-blocks' groups' rows come from their ranks
+            self.stats.collectives["lane"] += 1
+            lanes = [t.cpu().numpy() for t in all_gather(lane, mesh.s_group)]
+        else:
+            lanes = [lane.cpu().numpy()]
+        self.stats.d2h_bytes += sum(t.nbytes for t in lanes)
         for k, w in enumerate(works):
-            rows = dict(zip(w.groups, lane[k]))
+            rows = {}
+            for j, groups in enumerate(w.shard_groups or [w.groups]):
+                rows.update(zip(groups, lanes[j if len(lanes) > 1 else 0][k]))
             for i in w.order:
                 row = rows.get(i)
                 if row is None:
@@ -616,8 +790,11 @@ class RoundPipeline:
         """The batched evaluation of the round's cells, their records'
         fill, and the accuracy-target early stops."""
         self.stats.dispatches["eval"] += 1
-        acc, loss = self.data.evaluate(self.sims, self.params[:self.s],
-                                       work.order)
+        if self.mesh is None:
+            acc, loss = self.data.evaluate(self.sims, self.params[:self.s],
+                                           work.order)
+        else:
+            acc, loss = self._eval_sharded(work.order)
         for k, i in enumerate(work.order):
             sim = self.sims[i]
             sim._fill_round_eval(work.recs[i], acc[k], loss[k],
@@ -626,6 +803,35 @@ class RoundPipeline:
                 sim.acct.stopped_early = True
                 self.done[i] = True
 
+    def _eval_sharded(self, order) -> tuple:
+        """(accuracy, loss) host arrays of ``order``: each s-rank evaluates
+        its block's cells (the unsharded call on those cells), then the
+        s-group's all-gather brings every block's values to every rank."""
+        mesh, pl, dev = self.mesh, self.placement, self.device
+        mine = [i for i in order if pl.shard_of[i] == mesh.s_index]
+        both = None
+        if mine:
+            rows = self.params[torch.as_tensor(
+                [pl.slot_of.get(i, self.scratch) for i in range(self.s)],
+                device=dev)]
+            acc, loss = self.data.evaluate(self.sims, rows, mine)
+            both = torch.zeros((2, self.s), dtype=torch.float64)
+            both[:, mine] = torch.as_tensor(np.stack([acc, loss]),
+                                            dtype=torch.float64)
+            dtype = acc.dtype
+        if mesh.s_group is None:
+            return acc, loss
+        # float64 staging holds the fp32 values exactly
+        self.stats.collectives["eval"] += 1
+        if both is None:
+            both = torch.zeros((2, self.s), dtype=torch.float64)
+            dtype = np.float32
+        blocks = all_gather(both.to(dev), mesh.s_group)
+        host = torch.stack(blocks).cpu().numpy()
+        pick = [pl.shard_of[i] for i in order]
+        return (host[pick, 0, order].astype(dtype),
+                host[pick, 1, order].astype(dtype))
+
     # ------------------------------------------------------------------
     # A round's index block and its device work
     # ------------------------------------------------------------------
@@ -633,8 +839,9 @@ class RoundPipeline:
     def _layout(self, b: Bucket) -> dict:
         """Segment -> (start, stop) of a block of bucket ``b``: sample
         indices, row cells, scatter slots, fresh and stale gather rows,
-        the (fresh, valid, tau) masks, the groups' params rows, the
-        attacker flags of an attacked batch, the trained rows'
+        the (fresh, valid, tau) masks, the groups' params rows, a sharded
+        round's ownership mask of the operand's columns, the attacker
+        flags of an attacked batch, the trained rows'
         corruption multipliers (fp32 bits) of a faulted one, and at level
         2 the round's position in its chunk and its groups' lane host
         fields (fp32 bits)."""
@@ -643,6 +850,7 @@ class RoundPipeline:
         sizes = (("bidx", b.rows * cfg.local_steps * cfg.local_batch),
                  ("cell", b.rows), ("scat", b.rows), ("fidx", gn),
                  ("sidx", gn), ("meta", 3 * gn), ("agg", b.groups),
+                 ("own", gn if self.mesh is not None else 0),
                  ("att", gn if self.attack is not None else 0),
                  ("fscale", b.rows if self.faulty else 0),
                  ("lane_k", 1 if self._lane else 0),
@@ -658,6 +866,8 @@ class RoundPipeline:
         cache capacity of its chunk; sets its bucket, packed-row offsets,
         groups and their sizes.  Logs each cell's surviving corrupted rows
         as a ``fault`` event."""
+        if self.mesh is not None:
+            return self._pack_sharded(work)
         sims = self.sims
         bidx, cells, work.first, work.n_rows = pack_rows(
             sims, self.data, work.plans, work.order)
@@ -677,7 +887,7 @@ class RoundPipeline:
         def seg(name):
             lo, hi = lay[name]
             return block[lo:hi]
-        trash, scratch = self.cache.trash_slot, self.s
+        trash = self.cache.trash_slot
         if b.rows:
             seg("bidx")[:] = bidx.ravel()
             seg("cell")[:] = cells
@@ -705,34 +915,145 @@ class RoundPipeline:
                                 round=int(work.r), corrupt_rows=bad)
         if self._lane:
             seg("lane_k")[:] = work.pos
-        if not g:
-            return block
+        if g:
+            def columns(k, i, sc, fidx, sidx, own):
+                pos = sims[i].survivors(work.plans[i])[1]
+                nf = len(sc.fresh_rows)
+                fidx[k, :nf] = [work.first[i] + pos[row]
+                                for row in sc.fresh_rows]
+                sidx[k, nf:nf + len(sc.landing)] = [f.delta
+                                                    for f in sc.landing]
+            self._pack_groups(work, seg, g, n, lambda i: i, columns)
+        return block
+
+    def _pack_groups(self, work, seg, g, n, row_of, columns) -> None:
+        """The group segments of round ``work``'s block (``g`` x ``n``
+        padded): the (fresh, valid, tau) masks, each group's params row
+        (``row_of(cell)``; padding groups the scratch row), the attacker
+        flags and the lane's host fields; ``columns(k, cell, sched, fidx,
+        sidx, own)`` writes group k's gather columns (``own`` None
+        unsharded).  A padding column gathers the trash slot."""
         fidx = seg("fidx").reshape(g, n)
         sidx = seg("sidx").reshape(g, n)
-        sidx[:] = trash
+        sidx[:] = self.cache.trash_slot
+        own = seg("own").reshape(g, n) if self.mesh is not None else None
         meta = seg("meta").reshape(3, g, n)      # fresh, valid, tau
         agg = seg("agg")
-        agg[:] = scratch
+        agg[:] = self.scratch
         att = seg("att").reshape(g, n) if self.attack is not None else None
-        for k, i in enumerate(groups):
+        for k, (i, size) in enumerate(zip(work.groups, work.sizes)):
             sc, plan = work.scheds[i], work.plans[i]
-            nf, size = len(sc.fresh_rows), sizes[k]
-            pos = sims[i].survivors(plan)[1]
-            fidx[k, :nf] = [work.first[i] + pos[row] for row in sc.fresh_rows]
-            sidx[k, nf:size] = [f.delta for f in sc.landing]
+            nf = len(sc.fresh_rows)
+            columns(k, i, sc, fidx, sidx, own)
             meta[0, k, :nf] = 1
             meta[1, k, :size] = 1
             meta[2, k, nf:size] = sc.landing_taus
-            agg[k] = i
+            agg[k] = row_of(i)
             if att is not None:
-                att[k, :size] = sims[i].attack_flags(work.r,
-                                                     agg_lids(plan, sc))
+                att[k, :size] = self.sims[i].attack_flags(work.r,
+                                                          agg_lids(plan, sc))
         if self._lane:
             host = np.zeros((g, N_LANE_HOST), np.float32)
-            for k, i in enumerate(groups):
+            for k, i in enumerate(work.groups):
                 host[k] = self._lane_host(work, i)
             seg("lane_host")[:] = _fp32_bits(host).ravel()
+
+    def _pack_sharded(self, work) -> np.ndarray:
+        """This rank's index block of round ``work`` (``_layout``): its
+        flat shard's training rows (padded to the bucket of the round's
+        largest shard, so every rank's round has one shape), their scatter
+        slots in its own slot space, and its s-block's groups with the
+        gather columns it owns (``own``); the group metadata is the same
+        on every p-rank.  Counts the cross-shard landings and logs every
+        cell's ``fault`` events, as the unsharded round does."""
+        sims, mesh, pl = self.sims, self.mesh, self.placement
+        me, q, n_p = mesh.rank, mesh.p_index, mesh.n_p
+        mine = work.shard_rows[me]
+        r_max = max(len(rows) for rows in work.shard_rows)
+        r_b = bucket_block(r_max, ROW_BLOCK) if r_max else 0
+        work.n_rows = len(mine)
+        work.shard_groups = [
+            [i for i in work.order if pl.shard_of[i] == j
+             and (work.scheds[i].fresh_rows or work.scheds[i].landing)]
+            for j in range(mesh.n_s)]
+        groups = work.shard_groups[mesh.s_index]
+        sizes = [len(work.scheds[i].fresh_rows) + len(work.scheds[i].landing)
+                 for i in groups]
+        g, n = len(groups), max(sizes, default=0)
+        if self.kernel_route and g:
+            g, n = bucket_block(g, G_BLOCK), bucket_block(n, N_BLOCK)
+        b = Bucket(r_b, g, n, self.cache.capacity)
+        work.groups, work.sizes, work.bucket = groups, sizes, b
+        self._count_cross_shard(work)
+        lay = self._layout(b)
+        block = np.zeros(lay["lane_host"][1], np.int64)
+
+        def seg(name):
+            lo, hi = lay[name]
+            return block[lo:hi]
+        trash, scratch = self.cache.trash_slot, self.scratch
+        if r_b:
+            bidx, cell = seg("bidx").reshape(r_b, -1), seg("cell")
+            cell[:] = scratch      # a rank with no row trains discarded rows
+            for loc, (i, row) in enumerate(mine):
+                bidx[loc] = work.plans[i].bidx[row] + self.data.row_off[i]
+                cell[loc] = pl.slot_of[i]
+            if mine:                               # padding repeats row 0
+                bidx[len(mine):], cell[len(mine):] = bidx[0], cell[0]
+            scat = seg("scat")
+            scat[:] = trash
+            for i in work.order:
+                sc = work.scheds[i]
+                for (row, _l, _a, _d), (flat, slot) in zip(sc.new_stale,
+                                                           sc.slots):
+                    if flat == me:
+                        scat[work.rowq[(i, int(row))][1]] = slot
+            if self.faulty:
+                seg("fscale")[:] = _fp32_bits(1.0)
+        for i in work.order:
+            fp, plan = sims[i].fault_plan, work.plans[i]
+            if not (self.faulty and fp is not None and fp.has_corruption):
+                continue
+            surv = sims[i].survivors(plan)[0]
+            scale = fp.scale_for(work.r, plan.chosen)
+            for row in surv:
+                qq, loc = work.rowq[(i, int(row))]
+                if pl.shard_of[i] * n_p + qq == me:
+                    seg("fscale")[loc] = _fp32_bits(scale[row])
+            bad = int(np.count_nonzero(scale[surv] != 1.0))
+            if bad:
+                self.telemetry.event("fault", cell=self._labels[i],
+                                     round=int(work.r), corrupt_rows=bad)
+        if self._lane:
+            seg("lane_k")[:] = work.pos
+        if g:
+            def columns(k, i, sc, fidx, sidx, own):
+                for col, row in enumerate(sc.fresh_rows):
+                    qq, loc = work.rowq[(i, int(row))]
+                    if qq == q:
+                        fidx[k, col], own[k, col] = loc, 1
+                for col, f in enumerate(sc.landing, len(sc.fresh_rows)):
+                    if f.delta[0] == me:
+                        sidx[k, col], own[k, col] = f.delta[1], 1
+            self._pack_groups(work, seg, g, n, pl.slot_of.__getitem__,
+                              columns)
         return block
+
+    def _count_cross_shard(self, work) -> None:
+        """Landings whose slot lies on another p-shard than some other
+        column of its group (the reference's diagnostic): rows the round's
+        reduction really merges across ranks.  Every rank counts every
+        group."""
+        n_p = self.mesh.n_p
+        for i in work.order:
+            sc = work.scheds[i]
+            if not sc.landing:
+                continue
+            col_q = ([work.rowq[(i, int(row))][0] for row in sc.fresh_rows]
+                     + [f.delta[0] % n_p for f in sc.landing])
+            self.stats.cross_shard_landings += sum(
+                1 for f in sc.landing
+                if any(qc != f.delta[0] % n_p for qc in col_q))
 
     def _views(self, b: Bucket, block) -> dict:
         """Block ``block`` of bucket ``b`` cut into its segments."""
@@ -746,14 +1067,16 @@ class RoundPipeline:
         the scratch row: the warm-up round of a new graph."""
         lay, out = self._layout(b), block.clone()
         out[slice(*lay["scat"])] = self.cache.trash_slot
-        out[slice(*lay["agg"])] = self.s
+        out[slice(*lay["agg"])] = self.scratch
         return out
 
     def _device_round(self, r: int, work: RoundWork):
         """The round's training and server step on the device, replayed
         from its bucket's graph on the card's kernel route, else run
         eagerly; returns the survivors' l2 stats (device, packed in batch
-        order; None when no learner survived)."""
+        order; None when no learner survived).  Sharded: this rank's
+        padded rows' stats (None on every rank when no learner survived),
+        and the round's reduction counted."""
         b = work.bucket
         if self.graphs is not None:
             l2 = self.graphs.run(b, work.block, self._round(b),
@@ -761,7 +1084,11 @@ class RoundPipeline:
                                  self.stats)
         else:
             l2 = self._round(b, work)(work.block)
-        return None if l2 is None else l2[:work.n_rows]
+        if self.mesh is None:
+            return None if l2 is None else l2[:work.n_rows]
+        if b.groups and self.mesh.p_group is not None:
+            self.stats.collectives["all_reduce"] += 1
+        return l2           # this rank's rows, padded as every rank's
 
     def _round(self, b: Bucket, work: RoundWork = None):
         """The device round of bucket ``b`` as a function of its index
@@ -795,6 +1122,13 @@ class RoundPipeline:
         u = self.cache.rows[v["sidx"]]
         if deltas is not None:
             u = torch.where(fresh.view(-1, 1), deltas[v["fidx"]], u)
+        if self.mesh is not None:
+            # the columns this rank does not own take -0.0, the identity
+            # of fp32 addition (signed zeros included), so the sum over
+            # the p-group is bitwise the unsharded gather
+            u = torch.where(v["own"].view(-1, 1).bool(), u, -0.0)
+            if self.mesh.p_group is not None:
+                dist.all_reduce(u, group=self.mesh.p_group)
         u = torch.where(valid.view(-1, 1), u, 0.0).view(b.groups, b.n,
                                                         self.d_pad)
         cells, rule = v["agg"], cfg0.scaling_rule
@@ -944,20 +1278,134 @@ class RoundPipeline:
         counters) back to its Simulator and finalize it (the session notes
         its counters, the registry's one write of them), and hand the
         graphs back for the next pipeline of this structure; returns the
-        Accountings."""
-        accts = []
+        Accountings.  Sharded, every rank's Simulators get every cell's
+        rows (``_cell_rows``)."""
+        accts, d = [], self.d
+        rows = self._cell_rows("finalize")
         for i, sim in enumerate(self.sims):
-            sim.flat_params = self.params[i, :self.d].clone()
+            sim.flat_params = rows["params"][i][:d].clone()
             if self.yogi:
-                sim.flat_opt_state = {
-                    "m": self.opt_state["m"][i, :self.d].clone(),
-                    "v": self.opt_state["v"][i, :self.d].clone(),
-                    "t": self.opt_state["t"][i].clone()}
-            sim.robust_counts = self.robust_counts[i].clone()
-            sim.guard_counts = self.guard_counts[i].clone()
+                sim.flat_opt_state = {"m": rows["m"][i][:d].clone(),
+                                      "v": rows["v"][i][:d].clone(),
+                                      "t": rows["t"][i].clone()}
+            sim.robust_counts = rows["robust"][i].clone()
+            sim.guard_counts = rows["guard"][i].clone()
             accts.append(sim._finalize(self.telemetry))
         self._release()
         return accts
+
+    def _row_state(self) -> dict:
+        """The per-cell device rows, by name: params, robust and guard
+        counters, and the YoGi state."""
+        return {"params": self.params, "robust": self.robust_counts,
+                "guard": self.guard_counts, **(self.opt_state or {})}
+
+    def _cell_rows(self, kind: str) -> dict:
+        """name -> {cell: its row} over every cell of the batch.
+        Sharded, each state tensor's blocks come from the s-group's
+        all-gather (one collective of ``kind`` a tensor), and the cells a
+        repack evicted from their saved rows."""
+        state = self._row_state()
+        if self.mesh is None:
+            return {k: {i: t[i] for i in range(self.s)}
+                    for k, t in state.items()}
+        pl, group = self.placement, self.mesh.s_group
+        out = {}
+        for name, t in state.items():
+            if group is not None:
+                self.stats.collectives[kind] += 1
+            blocks = all_gather(t, group)
+            out[name] = {i: blocks[j][pl.slot_of[i]]
+                         for i, j in pl.shard_of.items()}
+            for i, saved in self._saved.items():
+                out[name][i] = saved[name]
+        return out
+
+    # ------------------------------------------------------------------
+    # Shard-aware repacking: early-stopped cells leave the placement, live
+    # cells compact across s-shards
+    # ------------------------------------------------------------------
+
+    def _maybe_repack(self) -> None:
+        """After a chunk: when the live cells' bucketed per-shard capacity
+        has dropped, repack them (the reference's trigger)."""
+        from repro_torch.sweeps.sharding import Placement
+        live = [i for i in range(self.s) if not self.done[i]]
+        if not live:
+            return
+        new_pl = Placement.build(live, self.mesh.n_s)
+        if new_pl.s_loc >= self.placement.s_loc:
+            return
+        with self.telemetry.span("repack", live=len(live)):
+            self._repack(new_pl, live)
+
+    def _repack(self, new_pl, live) -> None:
+        """Move every live cell's rows to its place in ``new_pl`` and
+        every in-flight straggler's cache row to a slot on its cell's new
+        s-shard (on the same p-shard, so the participant partition
+        survives), saving the early-stopped cells' rows first.  Pure row
+        movement between the s-group's ranks (``reshard_rows``), written
+        in place: each tensor keeps its shape, so a graphed round still
+        reads the buffers its graphs hold."""
+        from repro_torch.sweeps.sharding import reshard_rows
+        old_pl, mesh = self.placement, self.mesh
+        j, n_p, group = mesh.s_index, mesh.n_p, mesh.s_group
+        rows = self.scratch + 1
+        self.stats.dispatches["repack"] += 1
+
+        # 1. params, YoGi rows and counters: this shard's new block (a row
+        #    no live cell takes keeps its content), then the evicted cells
+        def flat(pl, i):
+            return pl.shard_of[i] * rows + pl.slot_of[i]
+        pmap = np.arange(mesh.n_s * rows)
+        for i in live:
+            pmap[flat(new_pl, i)] = flat(old_pl, i)
+        evict = [i for i in old_pl.shard_of if self.done[i]]
+        idx = np.concatenate([pmap[j * rows:(j + 1) * rows],
+                              [flat(old_pl, i) for i in evict]])
+        for name, t in self._row_state().items():
+            if group is not None:
+                self.stats.collectives["repack"] += 1
+            out = reshard_rows(t, idx, group)
+            t.copy_(out[:rows])
+            for k, i in enumerate(evict):
+                self._saved.setdefault(i, {})[name] = out[rows + k].clone()
+        cells = new_pl.shards[j]
+        self._scal.copy_(torch.tensor(
+            self._scal_rows(rows, cells, new_pl.slot_of.__getitem__),
+            dtype=torch.float32))
+
+        # 2. the cache: fresh accounts, every live entry a slot on its
+        #    cell's new s-shard (allocation may grow the capacity), then
+        #    this rank's rows gathered from the s-group's blocks
+        old_rows = self.accounts.capacity + 1
+        acc = ShardedSlotAccounts(mesh.size, capacity=self.accounts.capacity)
+        moves = []                      # (new slot, old row in the group)
+        for i in live:
+            shard = new_pl.shard_of[i]
+            for f in self.sims[i].stale_cache:
+                old_flat, old_slot = f.delta
+                new_flat = shard * n_p + old_flat % n_p
+                slot = acc.alloc(new_flat, 1)[0][0]
+                f.delta = (new_flat, slot)
+                if new_flat == mesh.rank:
+                    moves.append((slot, (old_flat // n_p) * old_rows
+                                  + old_slot))
+        cmap = np.full(acc.capacity + 1, j * old_rows + old_rows - 1)
+        for slot, old in moves:
+            cmap[slot] = old
+        if group is not None:
+            self.stats.collectives["repack"] += 1
+        moved = reshard_rows(self.cache.rows, cmap, group)
+        if acc.capacity != self.cache.capacity:
+            self.stats.dispatches["cache_grow"] += 1
+            self.cache.reserve(acc.capacity)
+            if self._ws is not None:
+                self.cache.rows = self._ws.cache_rows(self.cache.rows)
+        self.cache.rows.copy_(moved)
+        self.accounts = acc
+        self._pending_free = []   # the old slot ids mean nothing now
+        self.placement = new_pl
 
     def _release(self) -> None:
         """Hand the graphs and their buffers back (``graphs.release``)."""
@@ -980,40 +1428,54 @@ class RoundPipeline:
         ``finalize``.  Each cell's accounting carries its round log; the
         payload carries the cells' labels and the session's round-log byte
         offset, to which a resume into the same directory truncates the
-        log (``TelemetrySession.restore``)."""
-        d = self.d
-        params = self.params[:, :d].cpu().numpy()
-        opt = ({k: t.cpu().numpy() for k, t in self.opt_state.items()}
-               if self.yogi else None)
-        robust = self.robust_counts.cpu()
-        guard = self.guard_counts.cpu()
+        log (``TelemetrySession.restore``).
+
+        Sharded, every rank takes part (the s-group's gathers of the rows,
+        the grid's gather of the cache rows; collectives of kind
+        ``snapshot``) and gets the same payload, which also names each
+        stale row's flat shard (``stale_shards``) and the mesh's shape;
+        rank 0 alone writes it (``checkpoint``)."""
+        d, mesh = self.d, self.mesh
+        rows = {k: {i: t.to("cpu", copy=True) for i, t in by_cell.items()}
+                for k, by_cell in self._cell_rows("snapshot").items()}
+        if mesh is None:
+            row = lambda slot: self.cache.rows[slot]
+        else:
+            if mesh.group is not None:
+                self.stats.collectives["snapshot"] += 1
+            caches = all_gather(self.cache.rows, mesh.group)
+            row = lambda slot: caches[slot[0]][slot[1]]
         payload_sims = []
         for i, sim in enumerate(self.sims):
-            slots = [f.delta for f in sim.stale_cache]
-            rows = (self.cache.rows[torch.as_tensor(
-                slots, dtype=torch.int64, device=self.device)].cpu()
-                if slots else [])
+            stale = [row(f.delta).cpu() for f in sim.stale_cache]
             payload_sims.append({
                 "cfg": dataclasses.asdict(sim.cfg),
-                "state": sim.capture_state(stale_rows=rows,
-                                           robust_counts=robust[i],
-                                           guard_counts=guard[i]),
-                "flat_params": params[i],
-                "flat_opt_state": None if opt is None else {
-                    "m": opt["m"][i, :d], "v": opt["v"][i, :d],
-                    "t": opt["t"][i]},
-                "fault_plan": sim.fault_plan})
+                "state": sim.capture_state(
+                    stale_rows=torch.stack(stale) if stale else [],
+                    robust_counts=rows["robust"][i],
+                    guard_counts=rows["guard"][i]),
+                "flat_params": rows["params"][i][:d].numpy(),
+                "flat_opt_state": None if not self.yogi else {
+                    "m": rows["m"][i][:d].numpy(),
+                    "v": rows["v"][i][:d].numpy(),
+                    "t": rows["t"][i].numpy()},
+                "fault_plan": sim.fault_plan,
+                **({} if mesh is None else {
+                    "stale_shards": [f.delta[0] for f in sim.stale_cache]})})
         return {"version": 1, "kind": "pipeline", "next_round": int(r_next),
                 "done": list(self.done), "sims": payload_sims,
                 "cache_capacity": self.cache.capacity,
+                "mesh": None if mesh is None else (mesh.n_s, mesh.n_p),
                 "labels": list(self._labels),
                 "telemetry": self.telemetry.state()}
 
     def checkpoint(self, r_next: int) -> None:
         """Write ``snapshot(r_next)`` (wrapped by ``checkpoint_wrap``) to
-        ``checkpoint_path``, atomically."""
+        ``checkpoint_path``, atomically; sharded, every rank builds it and
+        rank 0 writes it."""
         from repro_torch.checkpoint.state import save_snapshot
         payload = self.snapshot(r_next)
         if self.checkpoint_wrap is not None:
             payload = self.checkpoint_wrap(payload)
-        save_snapshot(self.checkpoint_path, payload)
+        if self.mesh is None or self.mesh.rank == 0:
+            save_snapshot(self.checkpoint_path, payload)

@@ -9,11 +9,13 @@ simulations run as lockstep batches on both substrates.
             evaluation; per-cell metrics bit for bit a serial run's
   results — struct-of-arrays metric accumulation per cell
   report  — paper-style resource-to-accuracy tables (text / markdown)
+  sharding — sweep-axis cell placement over a round mesh of ranks and the
+            row migration of a repack
 
 ``python -m repro_torch.sweeps [--smoke] [--device cpu]`` runs a demo
 grid, asserts that the batched metrics equal serial runs', and prints the
-table.  Sweep-axis sharding (``repro.sweeps.sharding``) is ROADMAP.md
-queue 1 item 14.
+table; ``--sharded`` / ``--participant-shards N`` shard it over the ranks
+of a process group.
 """
 from repro_torch.sweeps.grid import (AXES, POLICIES, Cell, SweepSpec,  # noqa: F401
                                      axis_updates, register_axis)

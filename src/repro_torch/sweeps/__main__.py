@@ -12,6 +12,8 @@
       --crash-after 3 --crash-hard          # exits 137 after round 3
   PYTHONPATH=src python -m repro_torch.sweeps --resume S.pkl --out R.json
   PYTHONPATH=src python -m repro_torch.sweeps --smoke --telemetry-dir T
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.sweeps --smoke --device cpu --sharded  # 2 gloo ranks
 
 Expands a policy x SAA x hardware grid (or, with ``--selector``, a
 selector race under matched seeds; ``--model`` adds a learner-model axis
@@ -28,15 +30,21 @@ a crashed sweep from its snapshot, bit for bit the uninterrupted sweep.
 exports the run there: ``rounds.jsonl`` (a line a cell and recorded
 round), ``events.jsonl``, ``trace.json`` (Perfetto) and ``metrics.prom``;
 the serial runs they are checked against stay at level 0 and K = 1.
+``--sharded`` shards each batch's sweep axis over the ranks of the
+default process group and ``--participant-shards N`` each round's cohort
+rows over N of them (both: an (n_ranks / N) x N mesh).  Launched by
+``torch.distributed.run`` (``--nproc-per-node R``), the CLI joins the
+group its environment names (gloo on the CPU, NCCL on the GPU; rank 0
+alone writes ``--out``); in a plain process the mesh is one rank.
 Unlike the reference it writes a JSON payload only when ``--out`` names a
-path.  The reference's sharding flags raise, naming the ROADMAP.md item
-that ports them.
+path.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
 
 from repro_torch.sim.engine import resolve_device
@@ -44,13 +52,7 @@ from repro_torch.sim.partition import TOKEN_BENCHMARKS
 from repro_torch.sweeps import (SweepSpec, assert_parity, run_batched,
                                 run_serial)
 from repro_torch.sweeps.report import savings_line, text_table
-from repro_torch.sweeps.runner import exact_parity, resume_sweep, unported
-
-# flag -> (what it asks for, the ROADMAP.md queue 1 item that ports it)
-UNPORTED_FLAGS = {
-    "sharded": ("sweep-axis sharding", 14),
-    "participant_shards": ("participant sharding", 14),
-}
+from repro_torch.sweeps.runner import exact_parity, resume_sweep
 
 
 def demo_spec(smoke: bool) -> SweepSpec:
@@ -98,9 +100,12 @@ def main(argv=None) -> None:
                     help="print the robust-aggregator strategy table and exit")
     ap.add_argument("--list-models", action="store_true",
                     help="print the learner-model strategy table and exit")
-    ap.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard the sweep axis over the process group's ranks")
     ap.add_argument("--participant-shards", type=int, default=0,
-                    help=argparse.SUPPRESS)
+                    help="shard each round's cohort rows over N ranks (with "
+                         "--sharded: an (n_ranks / N) x N ('s', 'p') mesh; "
+                         "alone: N of the ranks)")
     ap.add_argument("--rounds-per-dispatch", type=int, default=1,
                     metavar="K", help="rounds a chunk of the batched run "
                     "(the serial runs stay at 1)")
@@ -121,10 +126,7 @@ def main(argv=None) -> None:
                          "(Perfetto) and metrics.prom there")
     args = ap.parse_args(argv)
 
-    for flag, (what, item) in UNPORTED_FLAGS.items():
-        value = getattr(args, flag)
-        if value not in (None, False, 0):
-            raise unported(what, item)
+    _join_group(args.device)
     if args.list_selectors or args.list_aggregators or args.list_models:
         if args.list_selectors:
             from repro_torch.selection import describe_selectors
@@ -148,14 +150,30 @@ def main(argv=None) -> None:
             print(f"# telemetry exported to {args.telemetry_dir}")
 
 
+def _join_group(device) -> None:
+    """Join the process group that ``torch.distributed.run`` names in the
+    environment (``WORLD_SIZE`` and the rest), gloo on the CPU, NCCL on
+    the GPU; a plain process joins none."""
+    import torch.distributed as dist
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        dev = resolve_device(device)
+        dist.init_process_group("gloo" if dev.type == "cpu" else "nccl")
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _run(args, telemetry) -> None:
     if args.resume:
-        results, wall = resume_sweep(args.resume, device=args.device,
-                                     telemetry=telemetry)
+        results, wall = resume_sweep(
+            args.resume, device=args.device, telemetry=telemetry,
+            shard=args.sharded, shard_participants=args.participant_shards)
         print(f"# resumed from {args.resume} in {wall:.2f}s "
               f"({len(results)} cells)")
         print(text_table(results))
-        if args.out:
+        if args.out and _rank() == 0:
             payload = {"bench": "sweeps", "mode": "resume",
                        "resumed_from": args.resume, "cells": len(results),
                        "results": results.to_json_dict()}
@@ -194,6 +212,12 @@ def _run(args, telemetry) -> None:
     if telemetry is not None:
         cells = [dataclasses.replace(c, config=dataclasses.replace(
             c.config, telemetry=2)) for c in cells]
+    if args.sharded or args.participant_shards:
+        from repro_torch.sim.participant_sharding import n_ranks
+        axes = (["sweep"] if args.sharded else []) \
+            + (["participant"] if args.participant_shards else [])
+        print(f"# sharding the {'+'.join(axes)} axis over "
+              f"{n_ranks()} rank(s)")
     print(f"# sweep: {len(cells)} cells "
           f"({' x '.join(f'{a}[{len(v)}]' for a, v in spec.axes.items())}"
           f" x seeds[{len(spec.seeds)}])")
@@ -207,6 +231,7 @@ def _run(args, telemetry) -> None:
             crash_mode="hard" if args.crash_hard else "soft")
     results, batched_wall = run_batched(
         cells, device=args.device, fault_plan=fault_plan,
+        shard=args.sharded, shard_participants=args.participant_shards,
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every if args.checkpoint else 0,
         telemetry=telemetry)
@@ -227,7 +252,7 @@ def _run(args, telemetry) -> None:
         print()
         print(savings_line(results, {"policy": "relay", "saa": True},
                            {"policy": "random", "saa": False}))
-    if args.out:
+    if args.out and _rank() == 0:
         payload = {"bench": "sweeps", "mode": "smoke" if args.smoke else "demo",
                    "device": args.device or "cuda",
                    "rounds_per_dispatch": args.rounds_per_dispatch,

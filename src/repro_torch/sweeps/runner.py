@@ -1,6 +1,6 @@
-"""Batched multi-simulation executor (port of ``repro.sweeps.runner``,
-unsharded; a fused batch runs in ``SimConfig.rounds_per_dispatch``-round
-chunks).
+"""Batched multi-simulation executor (port of ``repro.sweeps.runner``; a
+fused batch runs in ``SimConfig.rounds_per_dispatch``-round chunks,
+optionally sharded over a round mesh of ranks).
 
 ``SweepRunner`` drives compatible cells (``compat_key``) in lockstep.
 Each round every cell's host state machine runs per cell (the Simulator's
@@ -35,8 +35,11 @@ envelope with the grid and the finished cells' accountings), which
 ``resume_sweep`` finishes bit for bit.  A ``TelemetrySession``
 (``telemetry``) is shared by every batch: one registry, one trace (a
 ``batch`` span a fused batch) and, for level-2 cells, one round log, a
-line a cell and recorded round.  Sweep-axis and participant sharding
-(ROADMAP queue 1 item 14) are not ported: asking for them raises.
+line a cell and recorded round.  ``shard``, ``mesh`` and
+``shard_participants`` shard each fused batch over a round mesh of the
+default process group's ranks (``repro_torch.sim.participant_sharding``),
+as the reference composes them; every rank runs the same ``SweepRunner``
+and ends with the same results.
 """
 from __future__ import annotations
 
@@ -57,14 +60,12 @@ from repro_torch.robust.aggregators import robust_sweep
 from repro_torch.sim.engine import (SharedData, Simulator, Substrate,
                                     resolve_device, substrate_key,
                                     train_packed)
+from repro_torch.sim.participant_sharding import (as_round_mesh, n_ranks,
+                                                  participant_mesh,
+                                                  round_mesh)
 from repro_torch.sim.pipeline import RoundPipeline, pipeline_key
 from repro_torch.sweeps.grid import Cell
 from repro_torch.sweeps.results import CellResult, SweepResults
-
-
-def unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP.md queue 1 item {item})")
 
 
 def compat_key(cfg) -> tuple:
@@ -87,7 +88,13 @@ class SweepRunner:
     ``checkpoint_path`` with ``checkpoint_every`` writes a resumable sweep
     snapshot every ``checkpoint_every`` rounds of a fused batch;
     ``telemetry`` is a ``TelemetrySession`` every fused batch shares.
-    After ``run()``, ``sims[i]`` holds cell i's finished Simulator (its
+    ``shard=True`` places each fused batch's cells on the sweep axis "s"
+    of a round mesh over every rank of the default process group (pass
+    ``mesh=``, a ``RoundMesh`` or an ``{"s": n, "p": n}`` shape, for
+    another); ``shard_participants`` adds the participant axis "p": True
+    takes every rank (sweep-axis sharding off), an int N combines with
+    ``shard=True`` as an ``(n_ranks // N) x N`` mesh.  Without a process
+    group the mesh is one rank.  After ``run()``, ``sims[i]`` holds cell i's finished Simulator (its
     final ``flat_params``) and ``batch_stats`` each fused batch's
     ``PipelineStats.as_dict()``, in batch order: without a session each
     batch's own counters, with one the shared registry's totals so far
@@ -105,8 +112,26 @@ class SweepRunner:
     telemetry: Optional[object] = None
 
     def __post_init__(self):
-        if self.shard or self.mesh is not None or self.shard_participants:
-            raise unported("sweep-axis and participant sharding", 14)
+        if self.mesh is None and (self.shard or self.shard_participants):
+            n = n_ranks()
+            if not self.shard:
+                self.mesh = participant_mesh(self.shard_participants)
+            elif not self.shard_participants:
+                self.mesh = round_mesh(n, 1)
+            else:
+                n_p = int(self.shard_participants)
+                if self.shard_participants is True or n_p < 1 or n % n_p:
+                    raise ValueError(
+                        "shard=True with shard_participants needs an integer "
+                        f"participant shard count dividing the {n} ranks")
+                self.mesh = round_mesh(n // n_p, n_p)
+        if self.mesh is not None:
+            self.mesh = as_round_mesh(self.mesh)
+            for c in self.cells:
+                if not c.config.fused_rounds:
+                    raise ValueError(
+                        f"cell {c.name}: round-mesh sharding requires the "
+                        "fused pipeline (fused_rounds=True)")
         self.device = resolve_device(self.device)
         if self.substrate_cache is None:
             self.substrate_cache = {}
@@ -145,7 +170,8 @@ class SweepRunner:
                         checkpoint_every=self.checkpoint_every,
                         checkpoint_wrap=self._ckpt_wrap(idxs, completed),
                         telemetry=self.telemetry,
-                        labels=[self.cells[i].name for i in idxs])
+                        labels=[self.cells[i].name for i in idxs],
+                        mesh=self.mesh)
                     accts = pipe.run()
                 self.batch_stats.append(pipe.stats.as_dict())
             else:
@@ -361,14 +387,17 @@ def run_batched(cells: Sequence[Cell], device=None, shard: bool = False,
 
 
 def resume_sweep(path: str, progress: bool = False, telemetry=None,
-                 device=None):
+                 device=None, shard: bool = False, mesh=None,
+                 shard_participants=0):
     """Finish a sweep from its snapshot (``SweepRunner`` with
     ``checkpoint_path``): the batches finished before the crash come back
     from their stored accountings, the batch in flight resumes its
     pipeline mid-run, and the batches never started run afresh, each
     cell bit for bit the uninterrupted sweep's.  Returns (SweepResults,
     wall seconds).  ``telemetry``: the session of the resumed batches (its
-    round log truncated to the snapshot's offset first)."""
+    round log truncated to the snapshot's offset first); ``shard``,
+    ``mesh``, ``shard_participants``: their round mesh, as
+    ``SweepRunner`` takes it (every rank resumes the same snapshot)."""
     from repro_torch.checkpoint.state import (SnapshotError,
                                               build_resumed_pipeline,
                                               load_snapshot)
@@ -382,11 +411,12 @@ def resume_sweep(path: str, progress: bool = False, telemetry=None,
     fp = payload.get("fault_plan")
     runner = SweepRunner(payload["cells"], device=device, progress=progress,
                          fault_plan=None if fp is None else fp.without_crash(),
-                         telemetry=telemetry)
+                         telemetry=telemetry, shard=shard, mesh=mesh,
+                         shard_participants=shard_participants)
     with runner._span("batch", cells=len(payload["group"])):
         pipe = build_resumed_pipeline(payload["pipeline"], progress=progress,
                                       device=runner.device,
-                                      telemetry=telemetry)
+                                      telemetry=telemetry, mesh=runner.mesh)
         accts = pipe.run()
     for i, acct in zip(payload["group"], accts):
         completed[i] = acct

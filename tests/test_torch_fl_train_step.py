@@ -273,7 +273,7 @@ def test_cli_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
 
 def test_param_specs_name_their_roadmap_item():
     cfg = tget("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 14\)"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 15\)"):
         ttrain.make_fl_train_step(cfg, param_specs={"embed": None})
     with pytest.raises(ValueError):
         ttrain.make_fl_train_step(cfg, cohort="scan")

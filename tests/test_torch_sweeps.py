@@ -502,14 +502,20 @@ def test_cli_writes_nothing_without_out(tmp_path, monkeypatch):
     assert len(res) == 1 and not list(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("flag", list(cli.UNPORTED_FLAGS))
-def test_cli_unported_flags_name_their_item(flag):
-    what, item = cli.UNPORTED_FLAGS[flag]
+@pytest.mark.parametrize("flag", ["sharded", "participant_shards"])
+def test_cli_unported_flags_name_their_item(flag, monkeypatch, capsys):
+    """The sharding flags (queue 1 item 14, ported) run: in a plain process
+    the mesh is one rank, and the batched run still equals the serial
+    runs; the header names the axis, as the reference's does."""
+    monkeypatch.setattr(cli, "demo_spec", lambda smoke: SweepSpec(
+        axes={"saa": [False, True]}, base=dict(SMALL, rounds=2)))
     opt = "--" + flag.replace("_", "-")
     argv = [opt] if flag == "sharded" else [opt, "4"]
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP\.md queue 1 item {item}\)"):
-        cli.main(["--smoke", "--device", "cpu", *argv])
+    cli.main(["--smoke", "--device", "cpu", *argv])
+    out = capsys.readouterr().out
+    axis = "sweep" if flag == "sharded" else "participant"
+    assert f"# sharding the {axis} axis over 1 rank(s)" in out
+    assert "per-cell metrics equal" in out
 
 
 @pytest.mark.parametrize("flag", ["checkpoint", "resume", "crash_after"])
@@ -535,12 +541,20 @@ def test_cli_chaos_flags_run(flag, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(shard=True), 14), (dict(mesh=object()), 14),
+    (dict(shard=True), 14), (dict(mesh={"s": 1, "p": 1}), 14),
     (dict(shard_participants=2), 14)])
 def test_runner_unported_options_name_their_item(kw, item):
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP\.md queue 1 item {item}\)"):
-        SweepRunner([], device="cpu", **kw)
+    """``shard``, ``mesh`` and ``shard_participants`` (queue 1 item 14,
+    ported) run: without a process group the mesh is one rank, and the
+    sweep equals the unsharded one bit for bit."""
+    cells = SweepSpec(axes={"saa": [False, True]},
+                      base=dict(SMALL, rounds=3)).expand()
+    runner = SweepRunner(cells, device="cpu", **kw)
+    assert runner.mesh.shape == {"s": 1, "p": 1}
+    got, want = runner.run(), SweepRunner(cells, device="cpu").run()
+    for a, b in zip(got, want):
+        assert summaries_equal(dict(a.summary), dict(b.summary))
+    assert runner.batch_stats[0]["n_shards"] == 1
 
 
 def test_runner_and_resume_take_a_telemetry_session(tmp_path):
