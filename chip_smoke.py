@@ -179,7 +179,16 @@ From the repository root, with nothing built beforehand.  It
      recomputed in fp64 from its own deltas, remat on == off bit for bit at
      a 4-layer cut with less peak memory, the reduced model's step on the
      card == on the CPU, and ``lm_loss`` through kernels 8 and 9 refusing
-     autograd on the card.
+     autograd on the card;
+  8. after the sharding phase, the legacy pytree engine and the launch
+     layer (``legacy_launch_paths``): the quickstart's three campaigns and
+     a trimmed_mean cell at ``fast_path=False`` (kernel 3, kernel 7 once
+     an aggregating round; host records == the fused run's), the REDUCED
+     internlm2 train step placed on a one-rank (1, 1) NCCL mesh == the
+     unplaced step, and the dispatch counter's FLOPs of the full-width
+     vmap round; and last, after every timed phase, the pod dry run's
+     required combinations on both meshes in this process
+     (``dryrun_paths``: host-only, the fake pod group made and destroyed).
 It exits non-zero, printing no result, on any failure or without a GPU.
 The next-to-last line is the per-kernel JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -1171,30 +1180,6 @@ def time_trimmed(torch, ops, ref, n, d, iters, gen, plain=True) -> dict:
 
 
 # --- the model zoo's serve path: kernels 8 and 9 --------------------------
-
-
-def live_pairs(s, window) -> int:
-    """(query, key) pairs of one sequence with j <= i and i - j < window."""
-    w = min(s, window)
-    return w * (w + 1) // 2 + (s - w) * window
-
-
-def swa_cost(b, s, h, hkv, dh, window, elem):
-    """(bytes, flops) sliding-window attention needs: q, k, v read once and
-    the output written once (``elem`` bytes an element); per live pair
-    2 Dh flops for q.k and 2 Dh for p v (the exponentials are not counted)."""
-    return (elem * b * s * dh * (2 * h + 2 * hkv),
-            4 * dh * h * b * live_pairs(s, window))
-
-
-def wkv_cost(b, s, h, n, elem, with_s0):
-    """(bytes, flops) WKV6 needs: r, k, v (``elem`` bytes) and w (fp32)
-    read once, u and s0 read once, y (``elem``) and the final state (fp32)
-    written once; per (batch, head, step) 2 N^2 flops for r.S and 3 N^2 for
-    the state's decay and outer product."""
-    seq = b * s * h * n
-    return (seq * (4 * elem + 4) + h * n * 4 + b * h * n * n * 4 * (2 if with_s0 else 1),
-            5 * n * n * b * h * s)
 
 
 def swa_inputs(torch, b, s, h, hkv, dh, dtype, gen):
@@ -2195,6 +2180,8 @@ def time_swa(torch, swa_ops, swa_ref, gen, b, s, h, hkv, dh, window) -> dict:
     ``enable_gqa`` (timed here only), beside the bound of the work at the
     real head dim."""
     import torch.nn.functional as F
+
+    from repro_torch.roofline.analysis import swa_cost
     q, k, v = swa_inputs(torch, b, s, h, hkv, dh, torch.bfloat16, gen)
     kern = lambda: swa_ops.swa_attention(q, k, v, window=window)
     plain = lambda: swa_ref.swa_attention_ref(q, k, v, window=window)
@@ -2234,6 +2221,7 @@ def time_lm_kernels(torch, gen) -> dict:
     from repro_torch.kernels.swa_attention import ref as swa_ref
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.kernels.wkv6 import ref as wkv_ref
+    from repro_torch.roofline.analysis import wkv_cost
     res = {SWA: time_swa(torch, swa_ops, swa_ref, gen, SWA_PATH["B"], SWA_PATH["S"], 16,
                          8, 128, 8192)}
     # kimi-k2's attention: Dh 112 computed on the 128-wide kernel
@@ -4211,6 +4199,210 @@ def lm_fl_paths(torch, launches, checks, check_grid, gen):
     return rep, time_chain, profile_example
 
 
+# --- the legacy engine, the pod launch layer and the roofline counter ---
+LEGACY_QUICK = ("Random", "RELAY", "RELAY+YoGi")
+LEGACY_ROBUST = "trimmed_mean"
+TRAIN_VMAP_TOKENS = 4 * 4_096          # the train phase's vmap round: P x S
+
+
+def legacy_launch_paths(torch, launches, gpu, sims, runs, paths, train):
+    """The legacy pytree engine on the card and the pod launch layer.
+
+    (a) the quickstart's Random, RELAY and RELAY+YoGi at ``fast_path=False``
+    (kernel 3 on every aggregating round's exact rows): launches == the
+    rounds that aggregated; host records and summary counters == the fused
+    run's and == the same legacy run on the CPU; params within
+    ``P_RTOL`` / ``P_ATOL`` of the flat run's; rounds/s beside both.
+    (b) the robustness race's trimmed_mean cell at ``fast_path=False``:
+    kernel 7 on every aggregated round, host records and robust counters
+    == the fused run's.  ((c), the dry run, is ``dryrun_paths``, after
+    every timed phase.)  (d) the REDUCED internlm2 fp32
+    train step with ``param_specs`` on a one-rank (1, 1) NCCL mesh, new
+    params bit for bit the unplaced step's; and the dispatch counter's
+    FLOPs of the train phase's full-width vmap round (on meta tensors)
+    beside 6 N T and the measured round time."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import adapt_for_shape, get_config, get_reduced, shape_for
+    from repro_torch.core.aggregation import flatten_update
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.staleness_agg import ops as saa_ops
+    from repro_torch.kernels.trimmed_agg import ops as trim_ops
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_fl_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import shape_params
+    from repro_torch.roofline import H100, CostCounter
+    from repro_torch.sim import SimConfig, Simulator
+    t_phase = time.perf_counter()
+    out = {"legacy": {}}
+    robust = {LEGACY_ROBUST: (dict(RACE, **DEFENSES[LEGACY_ROBUST][0]), TRIM)}
+    legacy = {name: (runs[name][0], CELL_AGG) for name in LEGACY_QUICK}
+    legacy.update(robust)
+    for name, (kw, kernel) in legacy.items():
+        cfg = SimConfig(**dict(kw, fast_path=False))
+        sim = Simulator(cfg, device="cuda")
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acct = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, n_agg = dict(LAUNCHES), aggregated(acct)
+        want = expected_launches(saa_ops, trim_ops, kernel, acct)
+        if n_agg == 0 or got != want:
+            fail(f"legacy {name}: launches {got}, expected {want} (one a round "
+                 "that aggregated, and no other kernel)")
+        launches.update(got)
+        fused = gpu[name]
+        if [host(r) for r in acct.records] != [host(r) for r in fused.records]:
+            fail(f"legacy {name}: host records differ from the fused run's")
+        if guard_counts(acct) != guard_counts(fused) or \
+                robust_counts(acct) != robust_counts(fused):
+            fail(f"legacy {name}: summary counters differ from the fused run's")
+        rec = {"launches": got, "aggregated_rounds": n_agg, "wall_s": wall,
+               "rounds_per_s": len(acct.records) / wall,
+               "fused_first_run_rounds_per_s":
+                   len(fused.records) / paths[name]["first_run_s"],
+               "robust": robust_counts(acct)}
+        if name in LEGACY_QUICK:
+            cpu = Simulator(cfg, device="cpu").run()
+            if [host(r) for r in cpu.records] != [host(r) for r in acct.records]:
+                fail(f"legacy {name}: host records differ from the CPU legacy run's")
+            flat_name = f"{name} flat"
+            flat_p = sims[flat_name].flat_params
+            mine = flatten_update(sim.params)[0]
+            err = (mine - flat_p).abs().max().item()
+            if not torch.allclose(mine, flat_p, rtol=P_RTOL, atol=P_ATOL):
+                fail(f"legacy {name}: params differ from the flat run's by {err}")
+            rec.update(params_max_abs_vs_flat=err,
+                       flat_first_run_rounds_per_s=len(gpu[flat_name].records)
+                       / paths[flat_name]["first_run_s"])
+        out["legacy"][name] = rec
+        print(f"legacy {name}: {got} over {n_agg} aggregating rounds; host records "
+              f"and counters == the fused run"
+              + (" and the CPU legacy run; params within "
+                 f"{rec['params_max_abs_vs_flat']:.2e} of the flat run"
+                 if name in LEGACY_QUICK else f", robust {rec['robust']}")
+              + f"; {rec['rounds_per_s']:.1f} rounds/s (fused first run "
+              f"{rec['fused_first_run_rounds_per_s']:.1f}"
+              + (f", flat {rec['flat_first_run_rounds_per_s']:.1f}"
+                 if name in LEGACY_QUICK else "") + ")")
+
+    # (d) the placed train step on one rank, and the counted vmap round
+    cfg = dataclasses.replace(get_reduced(TRAIN_ARCH), param_dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    batch = {k: torch.randint(0, cfg.vocab_size, (3, 2, 64), generator=g,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    fresh = torch.tensor([True, True, False], device="cuda")
+    tau = torch.tensor([0, 0, 2], dtype=torch.int32, device="cuda")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        specs = sh.param_pspecs(cfg, params, mesh)
+        dparams = sh.distribute(params, specs, mesh)
+        dbatch = sh.distribute(batch, {k: sh.P(None, "data", None) for k in batch},
+                               mesh)
+        out["placed"] = {}
+        for cohort in ("vmap", "stream"):
+            LAUNCHES.clear()
+            new_p, _ = make_fl_train_step(cfg, cohort=cohort)(params, batch, fresh, tau)
+            new_d, _ = make_fl_train_step(cfg, cohort=cohort, param_specs=specs)(
+                dparams, dbatch, fresh, tau)
+            torch.cuda.synchronize()
+            flat_p = flatten_update(new_p)[0]
+            flat_d = flatten_update(sh.map_tree(lambda _, t: t.full_tensor(),
+                                                new_d))[0]
+            same = bits_equal(torch, flat_d, flat_p)
+            err = (flat_d - flat_p).abs().max().item()
+            if not same or LAUNCHES:
+                fail(f"placed train step ({cohort}): differs from the unplaced "
+                     f"step by {err} (launches {dict(LAUNCHES)})")
+            out["placed"][cohort] = {"bitwise": same, "max_abs": err}
+            print(f"placed train step ({cohort}, REDUCED {TRAIN_ARCH} fp32, one-rank "
+                  "(1, 1) NCCL mesh): new params == the unplaced step's, bit for bit")
+    finally:
+        dist.destroy_process_group()
+
+    full = adapt_for_shape(get_config(TRAIN_ARCH), shape_for("train_4k"))
+    _, _, n_rep = full.segment_plan()
+    counts = []
+    for reps in (1, 2):
+        c = dr._depth(full, reps)
+        p_meta = shape_params(c)
+        b_meta = {k: torch.empty((TRAIN_P,) + TRAIN_BATCH, dtype=torch.int32,
+                                 device="meta") for k in ("tokens", "labels")}
+        with CostCounter() as counter:
+            make_fl_train_step(c, cohort="vmap")(
+                p_meta, b_meta, torch.empty(TRAIN_P, dtype=torch.bool, device="meta"),
+                torch.empty(TRAIN_P, dtype=torch.int32, device="meta"))
+        counts.append(counter.totals())
+    counted = counts[0]["flops"] + (n_rep - 1) * (counts[1]["flops"]
+                                                 - counts[0]["flops"])
+    n_params = sum(t.numel() for t in sh.leaves(shape_params(full)))
+    model = 6 * n_params * TRAIN_VMAP_TOKENS
+    round_s = train["runs"]["vmap"]["round_s"]
+    out["counted_vmap_round"] = {
+        "counted_flops": counted, "model_flops": model, "ratio": counted / model,
+        "round_s": round_s,
+        "counted_bf16_peak_share": counted / round_s / H100["peak_flops_bf16"]}
+    print(f"counted vmap round ({TRAIN_ARCH}, P = {TRAIN_P} x {TRAIN_BATCH[1]:,} "
+          f"tokens, meta tensors): {counted:.4e} FLOPs beside 6 N T = {model:.4e} "
+          f"(ratio {counted / model:.3f}); at the measured {round_s:.3f} s round, "
+          f"{out['counted_vmap_round']['counted_bf16_peak_share']:.3f} of the "
+          "dense bf16 peak")
+
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def dryrun_paths():
+    """(c) The dry run's required combinations (``repro_torch.launch.dryrun``
+    ``REQUIRED``) on both meshes, in this process: each ``lower_one``
+    creates its fake pod group and destroys it.  Host-only minutes, so it
+    runs after every timed phase.  Each step must be counted, with FLOPs
+    and bytes a chip above 0; per-shard argument bytes, FLOPs, bytes and
+    collective bytes a chip by kind and the roofline's bottleneck printed."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun as dr
+    t0 = time.perf_counter()
+    recs = []
+    for arch, shape, cohort in sorted(dr.REQUIRED):
+        for multi_pod in (False, True):
+            rec = dr.lower_one(arch, shape, multi_pod=multi_pod,
+                               cohort=cohort if cohort != "-" else "auto",
+                               save=False, verbose=False)
+            if dist.is_initialized():
+                fail("dry run: the fake pod group outlived its combination")
+            name = f"dry run {rec['arch']} {rec['shape']} mesh {rec['mesh']}"
+            if rec.get("step") != "counted":
+                fail(f"{name}: step not run: {rec.get('error')}")
+            if not (rec["flops_per_chip"] > 0 and rec["bytes_per_chip"] > 0):
+                fail(f"{name}: counted {rec['flops_per_chip']} FLOPs, "
+                     f"{rec['bytes_per_chip']} bytes")
+            coll = {k: v for k, v in rec["collectives"].items() if k != "total"}
+            print(f"{name} ({rec['cohort']}): args/chip "
+                  f"{rec['arg_bytes_per_chip']['total']:.4e} B, FLOPs/chip "
+                  f"{rec['flops_per_chip']:.4e}, bytes/chip "
+                  f"{rec['bytes_per_chip']:.4e}, collective bytes/chip {coll}, "
+                  f"bottleneck {rec['roofline']['bottleneck']} "
+                  f"({rec['step_s']:.1f} s)", flush=True)
+            recs.append(rec)
+    return {"records": recs, "seconds": time.perf_counter() - t0}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4671,6 +4863,10 @@ def main():
     # --- sharding: ranks of a torch.distributed group --------------------
     report["sharding"] = sharding_paths(torch, launches)
     lap("sharding")
+    # --- the legacy engine and the placed train step ----------------------
+    report["legacy_launch"] = legacy_launch_paths(torch, launches, gpu, sims, runs,
+                                                  report["paths"], train)
+    lap("legacy engine and launch layer")
     # --- the model zoo's serve path at full width -----------------------
     serve = serve_paths(torch)
     launches.update(serve.pop("launches"))
@@ -4787,6 +4983,9 @@ def main():
     lap("sweep profiles")
     profile_train()           # the train step's profile, with the others
     lap("train profile")
+    # --- the pod dry run: host-only, after every timed phase ------------
+    report["dryrun"] = dryrun_paths()
+    lap("dry run")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in report["phase_s"].items()))
     report.update(times=times, launches=dict(launches),
                   kernel_checks=dict(checks.n), check_cases=dict(checks.cases),

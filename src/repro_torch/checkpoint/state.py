@@ -1,7 +1,8 @@
 """Crash-safe run snapshots (port of ``repro.checkpoint.state``).
 
 ``repro_torch.checkpoint.checkpoint`` stores one parameter tree; this module
-stores everything a *run* needs to resume bit for bit: each simulation's
+stores everything a *run* needs to resume bit for bit (the fused
+pipeline, the per-stage flat path and the legacy engine): each simulation's
 host state (RNG stream, selector, APT, accounting, forecaster banks, busy
 clocks), its model and YoGi rows, its stale-cache rows in insertion order,
 the device counters not yet in its accounting, the round to resume at
@@ -33,6 +34,8 @@ import pickle
 from typing import Optional
 
 import torch
+
+from repro_torch.models.transformer import tree_map
 
 SNAPSHOT_VERSION = 1
 
@@ -73,18 +76,28 @@ def _host(t):
     return None if t is None else t.detach().cpu().numpy()
 
 
+def _host_tree(tree):
+    return None if tree is None else tree_map(_host, tree)
+
+
+def _device_tree(tree, device):
+    return tree_map(lambda a: torch.as_tensor(a, device=device).clone(), tree)
+
+
 def engine_snapshot(sim, next_round: int) -> dict:
-    """Snapshot a flat-path Simulator between rounds; ``next_round`` is the
-    first round the resumed loop runs."""
-    opt = sim.flat_opt_state
+    """Snapshot a flat-path or legacy Simulator between rounds;
+    ``next_round`` is the first round the resumed loop runs.  The legacy
+    engine's parameter and YoGi trees are stored as trees of arrays."""
+    ps = {"cfg": dataclasses.asdict(sim.cfg), "state": sim.capture_state(),
+          "fault_plan": sim.fault_plan}
+    if sim.cfg.fast_path:
+        ps["flat_params"] = _host(sim.flat_params)
+        ps["flat_opt_state"] = _host_tree(sim.flat_opt_state)
+    else:
+        ps["params"] = _host_tree(sim.params)
+        ps["opt_state"] = _host_tree(sim.opt_state)
     return {"version": SNAPSHOT_VERSION, "kind": "engine",
-            "next_round": int(next_round),
-            "sim": {"cfg": dataclasses.asdict(sim.cfg),
-                    "state": sim.capture_state(),
-                    "fault_plan": sim.fault_plan,
-                    "flat_params": _host(sim.flat_params),
-                    "flat_opt_state": None if opt is None else
-                    {k: _host(v) for k, v in opt.items()}}}
+            "next_round": int(next_round), "sim": ps}
 
 
 def save_engine_snapshot(path: str, sim, next_round: int) -> None:
@@ -111,11 +124,14 @@ def _restore_sim(ps: dict, substrate_cache: Optional[dict] = None,
     sim = Simulator(cfg, substrate=sub, device=device,
                     fault_plan=None if fp is None else fp.without_crash())
     sim.restore_state(ps["state"])
-    sim.flat_params = torch.as_tensor(ps["flat_params"],
-                                      device=sim.device).clone()
-    if ps.get("flat_opt_state") is not None:
-        sim.flat_opt_state = {k: torch.as_tensor(v, device=sim.device).clone()
-                              for k, v in ps["flat_opt_state"].items()}
+    if cfg.fast_path:
+        sim.flat_params = _device_tree(ps["flat_params"], sim.device)
+        if ps.get("flat_opt_state") is not None:
+            sim.flat_opt_state = _device_tree(ps["flat_opt_state"], sim.device)
+    else:
+        sim.params = _device_tree(ps["params"], sim.device)
+        if ps.get("opt_state") is not None:
+            sim.opt_state = _device_tree(ps["opt_state"], sim.device)
     return sim
 
 

@@ -195,6 +195,27 @@ def stale_synchronous_aggregate_flat(stacked, fresh, tau, *,
                                        RULE_ID[rule])
 
 
+def stale_synchronous_aggregate(update_trees, fresh, tau, *,
+                                rule: str = "relay", beta: float = 0.35,
+                                use_kernel: bool = False):
+    """Aggregate a round's fresh + stale update trees (the legacy engine's
+    pytrees) into one delta tree: each tree flattened in ``FlatSpec`` leaf
+    order, the rows stacked on their device and handed to
+    ``stale_synchronous_aggregate_flat`` on their exact count (kernel 3
+    under ``use_kernel``).  Returns (aggregate tree of views into the
+    (D,) aggregate, weights (n,))."""
+    if not update_trees:
+        raise ValueError("no updates to aggregate")
+    spec = make_flat_spec(update_trees[0])
+    stacked = torch.stack([flatten_update(t)[0] for t in update_trees])
+    dev = stacked.device
+    agg, w = stale_synchronous_aggregate_flat(
+        stacked, torch.as_tensor(np.asarray(fresh, bool), device=dev),
+        torch.as_tensor(np.asarray(tau, np.int32), device=dev), rule=rule,
+        beta=beta, use_kernel=use_kernel)
+    return unflatten_update(agg, spec), w
+
+
 def sweep_bucket_pad(cell_updates, d: int, *, device=None):
     """Pad a sweep round's per-cell update stacks to one (S, n, D) operand.
 

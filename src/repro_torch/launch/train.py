@@ -25,9 +25,14 @@ Two cohort strategies, as the reference's:
 
 Each keeps the reference's own Lam formula (``vmap``: ||u_hat - u_s||^2 /
 ((n_F+1)^2 ||u_hat||^2); ``stream``: its inner-product form), not
-``core.staleness.deviation_scores``.  ``param_specs`` (the reference's
-parameter layout over its pod mesh) take only ``None``: the pod launch
-layer's mesh and dry run are ROADMAP.md queue 1 item 15.
+``core.staleness.deviation_scores``.  ``param_specs`` (a tree of
+``launch.shardings.PartitionSpec``s, the parameters' placement on a
+``DeviceMesh``) place the step: params and batch are DTensors, each local
+step's gradients are redistributed to their parameter's placement (the
+reference's ``_constrain_like``: a token-sharded partial gradient is
+reduce-scattered to the parameter's shards), and the step runs under
+DTensor's implicit replication, so its plain scalars and masks act as
+replicated.  With ``param_specs=None`` the step is the plain one.
 
     python -m repro_torch.launch.train [--arch internlm2-1.8b] [--rounds 50]
         [--participants 4] [--local-batch 2] [--seq 64] [--rule relay]
@@ -71,16 +76,27 @@ def _tree_axpy_(alpha, x, acc):
 
 
 def _zeros_like_f32(tree):
-    return tree_map(lambda l: torch.zeros(l.shape, dtype=torch.float32,
-                                          device=l.device), tree)
+    """fp32 zeros of each leaf's shape, device and (for a DTensor) placement."""
+    return tree_map(lambda l: torch.zeros_like(l, dtype=torch.float32), tree)
 
 
-def _no_specs(param_specs) -> None:
-    if param_specs is not None:
-        raise NotImplementedError(
-            "param_specs (a parameter layout over a pod mesh) are not ported "
-            "to repro_torch yet: they belong to the pod launch layer's mesh "
-            "and dry run; pass None (ROADMAP.md queue 1 item 15)")
+def _pin_grads(params, grads: list, param_specs) -> list:
+    """``grads`` (aligned with ``tree_leaves(params)``) redistributed to
+    their parameter's placement in ``param_specs``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.shardings import map_tree, placements
+    spec_of = {}
+    map_tree(lambda _, w, s: spec_of.__setitem__(id(w), s), params, param_specs)
+    out = []
+    for w, g in zip(tree_leaves(params), grads):
+        if not isinstance(g, DTensor):
+            raise TypeError("param_specs place the step on a DeviceMesh: the "
+                            "params must be DTensors (launch.shardings."
+                            "distribute), got a plain tensor")
+        out.append(g.redistribute(g.device_mesh,
+                                  placements(spec_of[id(w)], g.device_mesh)))
+    return out
 
 
 def _relay_weights(fresh, tau, lam, *, rule, beta):
@@ -103,8 +119,9 @@ def _participant_delta_fn(cfg: ModelConfig, local_lr: float, local_steps: int,
                           param_specs=None):
     """delta_fn(params, pbatch) -> (delta tree in fp32, mean local loss).
     Each step: w <- (w.f32 - lr * g.f32) cast back to w's dtype; the delta is
-    (final - params) in the param dtype, then fp32, as the reference's."""
-    _no_specs(param_specs)
+    (final - params) in the param dtype, then fp32, as the reference's.
+    With ``param_specs`` each step's gradients are pinned to the params'
+    placements."""
 
     def delta_fn(params, pbatch):
         p, losses = params, []
@@ -115,6 +132,8 @@ def _participant_delta_fn(cfg: ModelConfig, local_lr: float, local_steps: int,
                 loss = lm_loss(cfg, q, pbatch)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                             materialize_grads=True)
+            if param_specs is not None:
+                grads = _pin_grads(q, grads, param_specs)
             with torch.no_grad():
                 g_of = dict(zip(map(id, leaves), grads))
                 del grads
@@ -179,92 +198,115 @@ def make_fl_train_step_yogi(cfg: ModelConfig, *, yogi_lr: float = 1e-2,
     return step
 
 
+def _stacked_empty(leaf, P: int):
+    """An uninitialised fp32 (P, *leaf.shape) buffer on ``leaf``'s device;
+    for a DTensor, a DTensor on its mesh placed as ``leaf`` one dim on."""
+    shape = (P,) + tuple(leaf.shape)
+    from torch.distributed.tensor import DTensor
+    if not isinstance(leaf, DTensor):
+        return torch.empty(shape, dtype=torch.float32, device=leaf.device)
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor import empty as dt_empty
+    return dt_empty(shape, dtype=torch.float32, device_mesh=leaf.device_mesh,
+                    placements=[Shard(p.dim + 1) if p.is_shard() else p
+                                for p in leaf.placements])
+
+
 def _make_step_impl(cfg: ModelConfig, *, local_lr, rule, beta, local_steps,
                     cohort, param_specs) -> Callable:
     delta_fn = _participant_delta_fn(cfg, local_lr, local_steps, param_specs)
 
-    if cohort == "vmap":
-        def step(params, batch, fresh, tau, *, deltas_out=None):
-            """``deltas_out`` (a dict) receives the (P, ...) fp32 deltas."""
-            P = fresh.shape[0]
-            deltas = tree_map(lambda l: torch.empty((P,) + tuple(l.shape),
-                                                    dtype=torch.float32,
-                                                    device=l.device), params)
-            losses = []
-            for i in range(P):
-                delta, loss = delta_fn(params, _participant(batch, i))
-                with torch.no_grad():
-                    tree_map(lambda d, u: d[i].copy_(u), deltas, delta)
-                losses.append(loss)
-                del delta
+    def vmap_step(params, batch, fresh, tau, *, deltas_out=None):
+        """``deltas_out`` (a dict) receives the (P, ...) fp32 deltas."""
+        P = fresh.shape[0]
+        deltas = tree_map(lambda l: _stacked_empty(l, P), params)
+        losses = []
+        for i in range(P):
+            delta, loss = delta_fn(params, _participant(batch, i))
             with torch.no_grad():
-                fresh_f = fresh.float()
-                n_f = torch.clamp(fresh_f.sum(), min=1.0)
-                # u_hat leaf by leaf, never the whole tree at once:
-                # Lam_s = ||u_hat - (u_s + n_F u_hat)/(n_F+1)||^2 / ||u_hat||^2
-                #       = ||u_hat - u_s||^2 / ((n_F+1)^2 ||u_hat||^2)
-                diff_sq = torch.zeros(P, dtype=torch.float32, device=fresh.device)
-                uhat_sq = 0.0
-                for d in tree_leaves(deltas):
-                    h = torch.tensordot(fresh_f, d, dims=1) / n_f
-                    diff_sq = diff_sq + torch.stack(
-                        [torch.sum((h - d[j]) ** 2) for j in range(P)])
-                    uhat_sq = uhat_sq + torch.sum(torch.square(h))
-                    del h
-                lam = diff_sq / ((n_f + 1.0) ** 2 * (uhat_sq + EPS))
-                lam = torch.where(fresh, torch.zeros_like(lam), lam)
-                w = _relay_weights(fresh, tau, lam, rule=rule, beta=beta)
-                agg = tree_map(lambda d: torch.tensordot(w, d, dims=1), deltas)
-            if deltas_out is not None:
-                deltas_out["deltas"] = deltas
-            return agg, {"loss": torch.stack(losses).mean(), "weights": w}
-        return step
-
-    if cohort == "stream":
-        def step(params, batch, fresh, tau):
-            P = fresh.shape[0]
+                tree_map(lambda d, u: d[i].copy_(u), deltas, delta)
+            losses.append(loss)
+            del delta
+        with torch.no_grad():
             fresh_f = fresh.float()
             n_f = torch.clamp(fresh_f.sum(), min=1.0)
+            # u_hat leaf by leaf, never the whole tree at once:
+            # Lam_s = ||u_hat - (u_s + n_F u_hat)/(n_F+1)||^2 / ||u_hat||^2
+            #       = ||u_hat - u_s||^2 / ((n_F+1)^2 ||u_hat||^2)
+            diff_sq = torch.zeros(P, dtype=torch.float32, device=fresh.device)
+            uhat_sq = 0.0
+            for d in tree_leaves(deltas):
+                h = torch.tensordot(fresh_f, d, dims=1) / n_f
+                diff_sq = diff_sq + torch.stack(
+                    [torch.sum((h - d[j]) ** 2) for j in range(P)])
+                uhat_sq = uhat_sq + torch.sum(torch.square(h))
+                del h
+            lam = diff_sq / ((n_f + 1.0) ** 2 * (uhat_sq + EPS))
+            lam = torch.where(fresh, torch.zeros_like(lam), lam)
+            w = _relay_weights(fresh, tau, lam, rule=rule, beta=beta)
+            agg = tree_map(lambda d: torch.tensordot(w, d, dims=1), deltas)
+        if deltas_out is not None:
+            deltas_out["deltas"] = deltas
+        return agg, {"loss": torch.stack(losses).mean(), "weights": w}
 
-            # pass 1: fresh average + per-participant squared norms
-            acc, loss_sum, sq = _zeros_like_f32(params), 0.0, []
-            for i in range(P):
-                delta, loss = delta_fn(params, _participant(batch, i))
-                with torch.no_grad():
-                    _tree_axpy_(fresh_f[i], delta, acc)
-                    sq.append(_tree_sq(delta))
-                loss_sum = loss_sum + loss
-                del delta
+    def stream_step(params, batch, fresh, tau):
+        P = fresh.shape[0]
+        fresh_f = fresh.float()
+        n_f = torch.clamp(fresh_f.sum(), min=1.0)
+
+        # pass 1: fresh average + per-participant squared norms
+        acc, loss_sum, sq = _zeros_like_f32(params), 0.0, []
+        for i in range(P):
+            delta, loss = delta_fn(params, _participant(batch, i))
             with torch.no_grad():
-                u_hat = tree_map(lambda a: a.div_(n_f), acc)
-                uhat_sq = _tree_sq(u_hat)
-            del acc
+                _tree_axpy_(fresh_f[i], delta, acc)
+                sq.append(_tree_sq(delta))
+            loss_sum = loss_sum + loss
+            del delta
+        with torch.no_grad():
+            u_hat = tree_map(lambda a: a.div_(n_f), acc)
+            uhat_sq = _tree_sq(u_hat)
+        del acc
 
-            # pass 2: exact deviations via <u_hat, u_s> (recompute deltas)
-            dots = []
-            for i in range(P):
-                delta, _ = delta_fn(params, _participant(batch, i))
-                with torch.no_grad():
-                    dots.append(_tree_dot(u_hat, delta))
-                del delta
-            del u_hat
+        # pass 2: exact deviations via <u_hat, u_s> (recompute deltas)
+        dots = []
+        for i in range(P):
+            delta, _ = delta_fn(params, _participant(batch, i))
             with torch.no_grad():
-                diff_sq = uhat_sq - 2.0 * torch.stack(dots) + torch.stack(sq)
-                lam = torch.where(fresh, torch.zeros_like(diff_sq),
-                                  diff_sq / ((n_f + 1.0) ** 2 * (uhat_sq + EPS)))
-                w = _relay_weights(fresh, tau, lam, rule=rule, beta=beta)
+                dots.append(_tree_dot(u_hat, delta))
+            del delta
+        del u_hat
+        with torch.no_grad():
+            diff_sq = uhat_sq - 2.0 * torch.stack(dots) + torch.stack(sq)
+            lam = torch.where(fresh, torch.zeros_like(diff_sq),
+                              diff_sq / ((n_f + 1.0) ** 2 * (uhat_sq + EPS)))
+            w = _relay_weights(fresh, tau, lam, rule=rule, beta=beta)
 
-            # pass 3: weighted aggregate (recompute deltas)
-            agg = _zeros_like_f32(params)
-            for i in range(P):
-                delta, _ = delta_fn(params, _participant(batch, i))
-                with torch.no_grad():
-                    _tree_axpy_(w[i], delta, agg)
-                del delta
-            return agg, {"loss": loss_sum / P, "weights": w}
+        # pass 3: weighted aggregate (recompute deltas)
+        agg = _zeros_like_f32(params)
+        for i in range(P):
+            delta, _ = delta_fn(params, _participant(batch, i))
+            with torch.no_grad():
+                _tree_axpy_(w[i], delta, agg)
+            del delta
+        return agg, {"loss": loss_sum / P, "weights": w}
+
+    if cohort == "vmap":
+        step = vmap_step
+    elif cohort == "stream":
+        step = stream_step
+    else:
+        raise ValueError(cohort)
+    if param_specs is None:
         return step
 
-    raise ValueError(cohort)
+    def placed_step(*args, **kw):
+        """The step under DTensor's implicit replication: its plain scalars
+        and masks act as replicated."""
+        from torch.distributed.tensor.experimental import implicit_replication
+        with implicit_replication():
+            return step(*args, **kw)
+    return placed_step
 
 
 STREAM_THRESHOLD = 8e9

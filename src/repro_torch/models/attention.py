@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import shard_hints
 from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -123,6 +124,11 @@ def gqa_init(gen, d_model, n_heads, n_kv_heads, d_head, qkv_bias, dtype):
 
 def gqa_project_qkv(params, x, n_heads, n_kv_heads, d_head, positions, rope_theta):
     B, S, _ = x.shape
+    if shard_hints.placed():
+        # a chip's heads come in whole kv groups: a placed projection whose
+        # heads do not split over its shards is gathered
+        params = {n: shard_hints.whole_heads(w, n_kv_heads)
+                  for n, w in params.items() if n[-1] in "qkv"}
     q = x @ params["w_q"]
     k = x @ params["w_k"]
     v = x @ params["w_v"]
@@ -157,7 +163,7 @@ def gqa_forward(params, x, positions, *, n_heads, n_kv_heads, d_head,
         qg = q.reshape(B, S, n_kv_heads, G, d_head)
         out = blocked_attention(qg, k, v, positions, positions, window=window)
     out = out.reshape(B, S, n_heads * d_head)
-    return out @ params["w_o"], (k, v)
+    return out @ shard_hints.whole_heads(params["w_o"], n_kv_heads, 0), (k, v)
 
 
 def gqa_decode(params, x, position, cache, *, n_heads, n_kv_heads, d_head,
@@ -175,14 +181,16 @@ def gqa_decode(params, x, position, cache, *, n_heads, n_kv_heads, d_head,
     Sc = cache["k"].shape[1]
     slot = (position % Sc).long()       # ring buffer (full cache: slot == pos)
     b_idx = torch.arange(B, device=x.device)
-    k_cache, v_cache, kv_pos = (cache[n].clone() for n in ("k", "v", "pos"))
-    k_cache[b_idx, slot] = k[:, 0]
-    v_cache[b_idx, slot] = v[:, 0]
-    kv_pos[b_idx, slot] = position.to(torch.int32)
+    # out-of-place writes: the same values as a clone written in place, and
+    # a placed (DTensor) cache may change its layout on the way
+    k_cache = cache["k"].index_put((b_idx, slot), k[:, 0])
+    v_cache = cache["v"].index_put((b_idx, slot), v[:, 0])
+    kv_pos = cache["pos"].index_put((b_idx, slot), position.to(torch.int32))
     qg = q.reshape(B, 1, n_kv_heads, G, d_head)
     out = decode_attention(qg, k_cache, v_cache, position, kv_pos, window=window)
     out = out.reshape(B, 1, n_heads * d_head)
-    return out @ params["w_o"], {"k": k_cache, "v": v_cache, "pos": kv_pos}
+    return (out @ shard_hints.whole_heads(params["w_o"], n_kv_heads, 0),
+            {"k": k_cache, "v": v_cache, "pos": kv_pos})
 
 
 # ---------------------------------------------------------------------------

@@ -21,12 +21,16 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
     ``fan_in ** -0.5`` (the second-to-last axis), drawn in fp32."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
+    if gen.device.type == "meta":                 # shape only: nothing drawn
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return x.mul_(std).to(dtype)      # in place: one fp32 copy of a large leaf
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return (x * 0.02).to(dtype)
 

@@ -13,8 +13,10 @@ super-block over ``params["stack"]``, whose leaves carry a leading ``n_rep``
 axis; the port keeps that tree (so weights carry across by key path) and
 loops over the axis in Python.  The activations pass through
 ``shard_hints.constrain_activations`` where the reference pins them (the
-identity unless a pod layout is configured, which raises: ROADMAP.md
-queue 1 item 15).  With ``cfg.remat`` and grad mode
+identity unless a pod layout is configured; then a DTensor's batch dim is
+pinned to the mesh's batch axes).  ``shape_params`` builds the parameter
+tree as ``meta`` tensors, for the launch layer's placements.  With
+``cfg.remat`` and grad mode
 on, each repetition of the super-block runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): the
 backward recomputes its activations instead of keeping them.
@@ -340,6 +342,20 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
         lambda: {f"sub{i}": _layer_init(cfg, gen, spec) for i, spec in enumerate(specs)},
         n_rep)
     return params
+
+
+class _ShapeOnly:
+    """Stands in for the generator of ``init_params`` when only shapes are
+    wanted: every leaf comes out a ``meta`` tensor and nothing is drawn."""
+    device = torch.device("meta")
+
+
+def shape_params(cfg: ModelConfig):
+    """The tree of ``init_params(cfg, ...)`` as ``meta`` tensors of the same
+    key paths, shapes and dtypes (the reference's
+    ``jax.eval_shape(init_params)``): a full-width model's layout with no
+    memory behind it."""
+    return init_params(cfg, _ShapeOnly())
 
 
 # ---------------------------------------------------------------------------

@@ -25,3 +25,10 @@ from repro_torch.selection.safa import SafaSelector  # noqa: F401,E402
 from repro_torch.selection.flips import FlipsSelector  # noqa: F401,E402
 from repro_torch.selection.ucb import UcbSelector  # noqa: F401,E402
 from repro_torch.selection.contribution import ContributionSelector  # noqa: F401,E402
+
+# name -> class map kept for callers of the pre-zoo API (``SELECTORS[name]()``);
+# ``SELECTOR_TABLE`` / ``build_selector`` honor selector_params and the
+# build-time context (FLIPS needs the substrate)
+SELECTORS = {cls.name: cls for cls in (
+    RandomSelector, OortSelector, PrioritySelector, SafaSelector,
+    FlipsSelector, UcbSelector, ContributionSelector)}

@@ -14,8 +14,9 @@ the CUDA kernels (``use_agg_kernel=True``, as ``repro_torch.quickstart``
 runs it).  ``--telemetry-dir DIR`` runs the batched cells at telemetry
 level 2 and exports the run there (``rounds.jsonl``, ``events.jsonl``,
 ``trace.json``, ``metrics.prom``); the serial runs stay at level 0.  The
-reference also renders the zoo's figures from that directory; the port's
-figures wait for ROADMAP.md queue 1 item 15.
+reference also renders the zoo's figures from that directory; the port
+renders none: its figures belong to the port's benchmark (the reference's
+``benchmarks/figures.py``, which needs matplotlib).
 
   PYTHONPATH=src python -m repro_torch.selector_zoo [--smoke]
   PYTHONPATH=src python -m repro_torch.selector_zoo --selectors random,oort,safa

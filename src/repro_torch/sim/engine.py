@@ -10,11 +10,17 @@ the deadline) is the scheduler's ``select_all`` branch.
 Simulated time is decoupled from wall-clock: device durations come from
 the heterogeneity profiles, availability from the trace substrate.
 
-Two substrates run a simulation: the fused device-resident pipeline
-(``repro_torch.sim.pipeline``, ``fused_rounds=True``) and the per-stage
+Three substrates run a simulation: the fused device-resident pipeline
+(``repro_torch.sim.pipeline``, ``fused_rounds=True``), the per-stage
 flat path below (``_run_loop``: train, collect, aggregate, apply, record),
-which the fused pipeline is held against bit for bit.  Both serve FedAvg
-and YoGi server steps, with or without the SAA kernels, and the robust
+which the fused pipeline is held against bit for bit, and the legacy
+engine (``fast_path=False``, MLP only): the reference's seed-parity and
+benchmark baseline, with one scalar ``AvailabilityForecaster`` and
+``LearnerTrace`` query a learner, batches sampled on the host, parameter
+trees, every chosen learner trained (dropouts too, their rows discarded)
+and eager, exact-count aggregation of update trees (kernel 3 under
+``use_agg_kernel``); its host decisions equal the fast paths'.  All serve
+FedAvg and YoGi server steps, with or without the SAA kernels, and the robust
 aggregators (``repro_torch.robust``) under coordinated attacks
 (``repro_torch.faults``); both run a ``FaultPlan``'s update corruption,
 post-training drops, replays and crash, the guard (``SimConfig.guard``:
@@ -28,8 +34,7 @@ arrival schedule, fresh/straggler split, stale landings, APT targets,
 resource accounting) equals the reference's.  ``shard_participants``
 runs the fused pipeline over a round mesh of the default process group's
 ranks (``repro_torch.sim.participant_sharding``; one rank without a
-group).  Configurations outside the slice raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+group).
 """
 from __future__ import annotations
 
@@ -46,14 +51,17 @@ from repro_torch.core.aggregation import (bucket_block, fedavg_apply,
                                           guarded_aggregate_flat,
                                           make_flat_spec,
                                           stale_synchronous_aggregate_flat,
-                                          unflatten_update, yogi_apply_flat,
+                                          unflatten_update, yogi_apply,
+                                          yogi_apply_flat, yogi_init,
                                           yogi_init_flat)
 from repro_torch.core.apt import AdaptiveParticipantTarget
-from repro_torch.core.availability import ForecasterBank
+from repro_torch.core.availability import (AvailabilityForecaster,
+                                           ForecasterBank)
 from repro_torch.device import resolve_device  # noqa: F401  (re-exported)
 from repro_torch.faults import (ATTACK_KINDS, AttackSpec, FaultPlan,
                                 attack_key)
 from repro_torch.learners import MODEL_TABLE, DataMeta, build_model
+from repro_torch.models.transformer import tree_map
 from repro_torch.robust import ROBUST_AGGREGATORS, robust_key
 from repro_torch.robust.aggregators import robust_host_aggregate
 from repro_torch.selection import (SELECTOR_TABLE, LearnerView, build_selector,
@@ -108,7 +116,7 @@ class SimConfig:
     selection_window: float = 5.0
     seed: int = 0
     use_agg_kernel: bool = False      # SAA server step through the CUDA kernels
-    fast_path: bool = True
+    fast_path: bool = True            # False: the legacy pytree engine (MLP only)
     fused_rounds: bool = True
     target_accuracy: Optional[float] = None   # accuracy-target early stop
     stale_cache_capacity: int = 64    # initial device stale-cache slots (grows 2x)
@@ -131,17 +139,12 @@ class SimConfig:
             self.aggregator = "saa"
         if self.shard_participants and not (self.fast_path
                                             and self.fused_rounds):
-            # the reference raises this at run(); here before the
-            # unported legacy engine's error, so the flag is never dropped
+            # the reference raises this at run(); here, so the flag is
+            # never dropped
             raise ValueError(
                 "shard_participants requires the fused fast path "
                 "(fast_path=True, fused_rounds=True): the per-stage and "
                 "legacy substrates have no sharded round")
-        for unported, what, item in _UNPORTED:
-            if unported(self):
-                raise NotImplementedError(
-                    f"{what} is not ported to repro_torch yet "
-                    f"(ROADMAP.md queue 1 item {item})")
         if self.aggregator not in ROBUST_AGGREGATORS:
             raise ValueError(f"unknown aggregator {self.aggregator!r} "
                              f"(choose from {ROBUST_AGGREGATORS})")
@@ -152,13 +155,10 @@ class SimConfig:
             self.selector, self.selector_params)
         self.model_params = MODEL_TABLE.normalize_params(self.model,
                                                          self.model_params)
-
-
-# (predicate on a config, what it asks for, the ROADMAP queue 1 item that
-# ports it)
-_UNPORTED = (
-    (lambda c: not c.fast_path, "the legacy pytree engine (fast_path=False)", 15),
-)
+        if self.model != "mlp" and not self.fast_path:
+            raise ValueError(
+                f"model {self.model!r} requires the flat fast path "
+                "(fast_path=True): the legacy pytree round loop is MLP-only")
 
 
 def substrate_key(cfg: SimConfig) -> tuple:
@@ -267,21 +267,25 @@ class _InFlight:
     arrival: float
     duration: float
     delta: object                     # fused: device stale-cache slot id;
-                                      # flat: the cloned (D,) device row
+                                      # flat: the cloned (D,) device row;
+                                      # legacy: the cloned update tree
     stat_util: float
 
 
 @dataclasses.dataclass
 class RoundPlan:
     """Host output of ``_begin_round``: the cohort and its sample indices
-    (the pipeline gathers the batches on the device)."""
+    (the fast paths gather the batches on the device), or, on the legacy
+    engine, its batches materialized on the host (the same RNG draws)."""
     t_now: float
     chosen: list
     n_t: int
     k: int                            # cohort size
     durs: np.ndarray                  # (k,)
     drop_at: np.ndarray               # (k,) mid-round dropout offsets (inf = none)
-    bidx: np.ndarray                  # (k, steps*batch) sample indices
+    bidx: Optional[np.ndarray]        # (k, steps*batch) sample indices
+    bx: Optional[np.ndarray] = None   # legacy: (k, steps, batch, *sample)
+    by: Optional[np.ndarray] = None   # legacy: (k, steps, batch, *label)
 
 
 @dataclasses.dataclass
@@ -468,8 +472,14 @@ class Simulator:
         self.durations = np.array([
             p.round_duration(cfg.local_steps * cfg.local_batch, 1, cfg.model_mbits)
             for p in self.profiles])
-        self.trace_bank = substrate.trace_bank
-        self.fbank = ForecasterBank(cfg.n_learners)
+        if cfg.fast_path:
+            self.trace_bank = substrate.trace_bank
+            self.fbank = ForecasterBank(cfg.n_learners)
+            self.forecasters = None
+        else:
+            self.trace_bank = self.fbank = None
+            self.forecasters = [AvailabilityForecaster()
+                                for _ in range(cfg.n_learners)]
         self._warmup_forecasters()
         self._sel_spec = SELECTOR_TABLE[cfg.selector]
         self.selector = build_selector(cfg, substrate=substrate,
@@ -480,11 +490,22 @@ class Simulator:
         self._model_fns = substrate.model_fns
         if self.device.type == "cuda":
             ln.fp32_matmuls()
-        self.flat_params = torch.as_tensor(substrate.flat_params0,
-                                           device=self.device).clone()
-        self.flat_opt_state = (yogi_init_flat(len(substrate.flat_params0),
-                                              device=self.device)
-                               if cfg.server_opt == "yogi" else None)
+        if cfg.fast_path:
+            self.flat_params = torch.as_tensor(substrate.flat_params0,
+                                               device=self.device).clone()
+            self.flat_opt_state = (yogi_init_flat(len(substrate.flat_params0),
+                                                  device=self.device)
+                                   if cfg.server_opt == "yogi" else None)
+            self.opt_state = None
+        else:
+            # the legacy engine's parameter tree, on the device
+            self.params = tree_map(
+                lambda p: p.to(self.device, copy=True),
+                unflatten_update(torch.as_tensor(substrate.flat_params0),
+                                 self._flat_spec))
+            self.opt_state = (yogi_init(self.params)
+                              if cfg.server_opt == "yogi" else None)
+            self.flat_params = self.flat_opt_state = None
         # the dataset's device copy, shared through the substrate: batches
         # are gathered there
         (self.x_train, self.y_train, self.x_test,
@@ -508,6 +529,12 @@ class Simulator:
 
     def _warmup_forecasters(self):
         """Learners have pre-deployment local history (paper App. A step 2)."""
+        if self.forecasters is not None:
+            ts = np.arange(0, 3 * 24 * HOUR, 1800.0)
+            for f, t in zip(self.forecasters, self.traces):
+                for tt in ts:
+                    f.observe(tt, t.available(tt))
+            return
         counts, avail_counts, recent = self.substrate.warmed_fbank()
         self.fbank.counts = counts.copy()
         self.fbank.avail_counts = avail_counts.copy()
@@ -515,6 +542,13 @@ class Simulator:
 
     def _available_now(self, t_now: float):
         """Idle + available learner ids (ascending), forecasters updated."""
+        if self.forecasters is not None:
+            available = [lid for lid in range(self.cfg.n_learners)
+                         if self.traces[lid].available(t_now)
+                         and self.busy_until[lid] <= t_now]
+            for lid in available:
+                self.forecasters[lid].observe(t_now, True)
+            return available
         mask = self.trace_bank.available_all(t_now) & (self.busy_until <= t_now)
         available = np.nonzero(mask)[0]
         if len(available):                  # devices log their own state
@@ -523,6 +557,11 @@ class Simulator:
 
     def _views(self, t_now: float, available_ids):
         t0, t1 = t_now + self.mu, t_now + 2 * self.mu
+        if self.forecasters is not None:
+            return [LearnerView(lid, availability_prob=self.forecasters[lid]
+                                .predict_window(t0, t1),
+                                est_duration=self.durations[lid])
+                    for lid in available_ids]
         probs = self.fbank.predict_window_batch(available_ids, t0, t1)
         return [LearnerView(lid, availability_prob=float(p),
                             est_duration=self.durations[lid])
@@ -565,6 +604,8 @@ class Simulator:
 
     def _build_plan(self, chosen, t_now, n_t) -> RoundPlan:
         cfg = self.cfg
+        if not cfg.fast_path:
+            return self._build_legacy_plan(chosen, t_now, n_t)
         takes = [ln.sample_batch_indices(self.data.shards[lid], cfg.local_steps,
                                          cfg.local_batch, self.rng)
                  for lid in chosen]
@@ -574,6 +615,21 @@ class Simulator:
         drop_at = np.where(rel < durs, rel, np.inf)
         return RoundPlan(t_now, list(chosen), n_t, len(chosen), durs, drop_at,
                          np.asarray(takes, np.int64))
+
+    def _build_legacy_plan(self, chosen, t_now, n_t) -> RoundPlan:
+        """The legacy plan: host batches and scalar dropout times."""
+        cfg, d = self.cfg, self.data
+        xs, ys = zip(*(ln.sample_local_batches(d.shards[lid], d.x_train,
+                                               d.y_train, cfg.local_steps,
+                                               cfg.local_batch, self.rng)
+                       for lid in chosen))
+        durs = self.durations[np.asarray(chosen)]
+        drop_at = []
+        for lid, dur in zip(chosen, durs):
+            nu = self.traces[lid].next_unavailable_after(t_now)
+            drop_at.append(nu - t_now if nu - t_now < dur else np.inf)
+        return RoundPlan(t_now, list(chosen), n_t, len(chosen), durs,
+                         np.array(drop_at), None, np.stack(xs), np.stack(ys))
 
     def _schedule_round(self, r: int, plan: RoundPlan) -> RoundSchedule:
         """Arrival schedule, round end time, fresh/straggler split, stale
@@ -679,7 +735,11 @@ class Simulator:
         l2 stats (k,) host fp32 by plan row).  The reference also trains
         the rows that drop out (bucket-padded); their deltas and stats are
         discarded, so the port skips them on both substrates (their stats
-        stay 0 and are never read)."""
+        stay 0 and are never read).  The legacy engine trains every chosen
+        learner on its host batches and returns the deltas as a tree of
+        (k, ...) leaves, plan row i its row i."""
+        if not self.cfg.fast_path:
+            return self._train_legacy(plan)
         surv, pos = self.survivors(plan)
         l2s = np.zeros(plan.k, np.float32)
         deltas, l2, _ = train_packed([self], SharedData([self], self.device),
@@ -688,6 +748,17 @@ class Simulator:
             return None, pos, l2s
         l2s[surv] = l2.cpu().numpy()
         return deltas, pos, l2s
+
+    def _train_legacy(self, plan: RoundPlan):
+        cfg = self.cfg
+        deltas, _, l2 = ln.local_train_cohort(
+            flatten_update(self.params)[0],
+            torch.as_tensor(plan.bx, device=self.device),
+            torch.as_tensor(plan.by, dtype=torch.int64, device=self.device),
+            spec=self._flat_spec, lr=cfg.local_lr, prox_mu=cfg.prox_mu,
+            loss=self._model_fns.loss)
+        return (unflatten_update(deltas, self._flat_spec),
+                np.arange(plan.k), l2.cpu().numpy())
 
     def _corrupt_deltas(self, r: int, plan: RoundPlan, deltas):
         """The fault plan's update corruption of a round's trained rows
@@ -698,7 +769,12 @@ class Simulator:
         fp = self.fault_plan
         if deltas is None or fp is None or not fp.has_corruption:
             return deltas
-        scale = fp.scale_for(r, plan.chosen)[self.survivors(plan)[0]]
+        scale = fp.scale_for(r, plan.chosen)
+        if not self.cfg.fast_path:               # every chosen row, a tree
+            scale = torch.as_tensor(scale, device=self.device)
+            return tree_map(lambda d: d * scale.view((-1,) + (1,) * (d.dim() - 1)),
+                            deltas)
+        scale = scale[self.survivors(plan)[0]]
         return deltas * torch.as_tensor(scale, device=deltas.device)[:, None]
 
     def _collect_updates(self, r: int, plan: RoundPlan, deltas, pos, l2s):
@@ -710,10 +786,14 @@ class Simulator:
         aggregation rows, fresh first, then landing stale."""
         sched = self._schedule_round(r, plan)
         self._apply_feedback(r, sched, l2s)
-        fresh_updates = [deltas[pos[i]] for i in sched.fresh_rows]
+        if self.cfg.fast_path:
+            row = lambda i: deltas[pos[i]]                   # noqa: E731
+        else:
+            row = lambda i: tree_map(lambda d: d[pos[i]], deltas)  # noqa: E731
+        fresh_updates = [row(i) for i in sched.fresh_rows]
         for (i, lid, arr, dur) in sched.new_stale:
             self.stale_cache.append(_InFlight(lid, r, arr, dur,
-                                              deltas[pos[i]].clone(),
+                                              tree_map(torch.clone, row(i)),
                                               self._stat_util(i, l2s)))
         stale_updates = [f.delta for f in sched.landing]
         return (sched.t_end, fresh_updates, stale_updates, sched.landing_taus,
@@ -726,10 +806,24 @@ class Simulator:
         ``robust_host_aggregate`` (attack, guard screen, robust mask,
         weights), with the attacker flags of the rows' learner ids
         ``lids`` (a stale row is flagged for the round it lands); guarded
-        ones ``guarded_aggregate_flat``.  Guard counts are noted here."""
+        ones ``guarded_aggregate_flat``.  Guard counts are noted here.  The
+        legacy engine's update trees are flattened in ``FlatSpec`` order
+        (the same rows the reference's pytree wrapper
+        ``stale_synchronous_aggregate`` stacks) and its aggregate comes
+        back a tree."""
+        nf = len(fresh_updates)
+        if self.cfg.fast_path:
+            return self._aggregate_rows(r, lids, fresh_updates + stale_updates,
+                                        nf, stale_taus)
+        rows = [flatten_update(t)[0] for t in fresh_updates + stale_updates]
+        agg = self._aggregate_rows(r, lids, rows, nf, stale_taus)
+        return None if agg is None else unflatten_update(agg, self._flat_spec)
+
+    def _aggregate_rows(self, r, lids, rows, nf, stale_taus):
+        """``_aggregate`` of flat (D,) rows, the ``nf`` fresh ones first."""
         cfg = self.cfg
-        nf, ns = len(fresh_updates), len(stale_updates)
-        stacked = torch.stack(fresh_updates + stale_updates)
+        ns = len(rows) - nf
+        stacked = torch.stack(rows)
         guard = (cfg.guard_clip, cfg.guard_reject_mult) if cfg.guard else None
         quorum = max(int(cfg.quorum), 1)
         if self._attack is not None or self._robust is not None:
@@ -761,8 +855,17 @@ class Simulator:
         return agg
 
     def _apply_update(self, agg) -> None:
-        """Server optimizer step on the aggregated delta."""
-        if self.cfg.server_opt == "yogi":
+        """Server optimizer step on the aggregated delta (a tree on the
+        legacy engine)."""
+        if not self.cfg.fast_path:
+            if self.cfg.server_opt == "yogi":
+                self.params, self.opt_state = yogi_apply(self.params, agg,
+                                                         self.opt_state)
+            else:
+                self.params = tree_map(
+                    lambda p, d: fedavg_apply(p, d, self.cfg.server_lr),
+                    self.params, agg)
+        elif self.cfg.server_opt == "yogi":
             self.flat_params, self.flat_opt_state = yogi_apply_flat(
                 self.flat_params, agg, self.flat_opt_state)
         else:
@@ -770,6 +873,11 @@ class Simulator:
                                             self.cfg.server_lr)
 
     def _evaluate(self):
+        if not self.cfg.fast_path:
+            acc, loss = self._model_fns.evaluate(
+                tree_map(lambda p: p[None], self.params), self.x_test[None],
+                self.y_test[None])
+            return acc[0], loss[0]
         acc, loss = evaluate_rows(self._model_fns, self._flat_spec,
                                   self.flat_params[None], self.x_test,
                                   self.y_test)
@@ -841,7 +949,8 @@ class Simulator:
         if self.cfg.guard:                 # the fused pipeline's counters
             n_nf, n_out, skips = self.guard_counts.tolist()
             telemetry.note_guard(self.acct, n_nf, n_out, skips=skips)
-        self.params = unflatten_update(self.flat_params, self._flat_spec)
+        if self.cfg.fast_path:
+            self.params = unflatten_update(self.flat_params, self._flat_spec)
         return self.acct
 
     # ------------------------------------------------------------------
@@ -854,16 +963,17 @@ class Simulator:
         pickle: RNG stream, selector, APT, accounting, forecasters, busy
         clocks, the stale cache's entries with their rows (``stale_rows``,
         aligned with ``stale_cache``: the fused pipeline gathers them from
-        its device cache, where an entry's ``delta`` is a slot id) and the
-        device counters not yet noted in the accounting (the pipeline
-        passes its own rows of them)."""
-        fb = self.fbank
+        its device cache, where an entry's ``delta`` is a slot id; the
+        legacy engine's rows are trees) and the device counters not yet
+        noted in the accounting (the pipeline passes its own rows of
+        them)."""
         entries = []
         for k, f in enumerate(self.stale_cache):
             row = f.delta if stale_rows is None else stale_rows[k]
             entries.append((f.learner_id, f.origin_round, f.arrival,
                             f.duration, f.stat_util,
-                            torch.as_tensor(row).cpu().numpy()))
+                            tree_map(lambda t: torch.as_tensor(t).cpu().numpy(),
+                                     row)))
         counts = {"robust": (self.robust_counts if robust_counts is None
                              else robust_counts),
                   "guard": (self.guard_counts if guard_counts is None
@@ -873,10 +983,16 @@ class Simulator:
                 "apt": copy.deepcopy(self.apt),
                 "busy_until": self.busy_until.copy(), "mu": self.mu,
                 "t_now": self._t_now, "acct": copy.deepcopy(self.acct),
-                "fbank": (fb.counts.copy(), fb.avail_counts.copy(),
-                          fb.recent.copy()),
+                **self._forecaster_state(),
                 "counts": {k: v.cpu().numpy() for k, v in counts.items()},
                 "stale": entries}
+
+    def _forecaster_state(self) -> dict:
+        if self.forecasters is not None:
+            return {"forecasters": copy.deepcopy(self.forecasters)}
+        fb = self.fbank
+        return {"fbank": (fb.counts.copy(), fb.avail_counts.copy(),
+                          fb.recent.copy())}
 
     def restore_state(self, st: dict) -> None:
         """Inverse of ``capture_state``.  Stale entries come back with
@@ -890,15 +1006,19 @@ class Simulator:
         self.mu = st["mu"]
         self._t_now = st["t_now"]
         self.acct = copy.deepcopy(st["acct"])
-        self.fbank.counts, self.fbank.avail_counts, self.fbank.recent = (
-            np.array(a) for a in st["fbank"])
+        if self.forecasters is not None:
+            self.forecasters = copy.deepcopy(st["forecasters"])
+        else:
+            self.fbank.counts, self.fbank.avail_counts, self.fbank.recent = (
+                np.array(a) for a in st["fbank"])
         self.robust_counts = torch.as_tensor(st["counts"]["robust"],
                                              device=self.device).clone()
         self.guard_counts = torch.as_tensor(st["counts"]["guard"],
                                             device=self.device).clone()
         self.stale_cache = [
             _InFlight(lid, orig, arr, dur,
-                      torch.as_tensor(row, device=self.device), su)
+                      tree_map(lambda a: torch.as_tensor(a, device=self.device),
+                               row), su)
             for (lid, orig, arr, dur, su, row) in st["stale"]]
 
     def run(self, progress: bool = False, *,
@@ -909,7 +1029,7 @@ class Simulator:
         (the fused pipeline: at the first chunk boundary past each).
         ``telemetry``: the run's ``TelemetrySession`` (spans, registry and,
         on the fused pipeline at level 2, the round log)."""
-        if self.cfg.fused_rounds:
+        if self.cfg.fast_path and self.cfg.fused_rounds:
             from repro_torch.sim.pipeline import RoundPipeline
             return RoundPipeline([self], progress=progress,
                                  checkpoint_path=checkpoint_path,
@@ -922,8 +1042,8 @@ class Simulator:
     def _run_loop(self, start_round: int, progress: bool,
                   checkpoint_path: Optional[str] = None,
                   checkpoint_every: int = 0, telemetry=None) -> Accounting:
-        """The per-stage flat round loop from ``start_round`` (a restored
-        Simulator resumes here without resetting its clock), with the
+        """The per-stage flat or legacy round loop from ``start_round`` (a
+        restored Simulator resumes here without resetting its clock), with the
         snapshot and crash hooks after each round.  Its stages are
         ``telemetry``'s spans (no lane, no round log on this route, as in
         the reference)."""
@@ -947,7 +1067,8 @@ class Simulator:
         return self._finalize(telemetry)
 
     def _flat_round(self, r: int, progress: bool, telemetry=None):
-        """One round of the flat path; returns its RoundRecord, or None
+        """One round of the flat path or the legacy engine; returns its
+        RoundRecord, or None
         when the round was skipped.  The telemetry spans are the
         reference's (schedule, dispatch, fetch, eval); the profiler ranges
         carry the fused pipeline's names: host stages, device work,

@@ -130,3 +130,13 @@ def sample_batch_indices(shard_idx: np.ndarray, n_steps: int, batch: int,
     replacement when the shard is small) — the reference's RNG draw."""
     return rng.choice(shard_idx, size=n_steps * batch,
                       replace=len(shard_idx) < n_steps * batch)
+
+
+def sample_local_batches(shard_idx: np.ndarray, x: np.ndarray, y: np.ndarray,
+                         n_steps: int, batch: int, rng: np.random.Generator):
+    """Fixed-shape local batches materialized on the host (the legacy
+    engine's): the same RNG draw as ``sample_batch_indices``, whose rows
+    the other paths gather on the device."""
+    take = sample_batch_indices(shard_idx, n_steps, batch, rng)
+    return (x[take].reshape((n_steps, batch) + x.shape[1:]),
+            y[take].reshape((n_steps, batch) + y.shape[1:]))

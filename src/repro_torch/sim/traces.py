@@ -5,9 +5,13 @@ minutes) and cyclic behavior: each learner gets a deterministic alternating
 (gap, session) renewal process whose gap intensity follows a per-learner
 diurnal phase.  ``TraceBank`` packs all learners' segment boundaries into
 one sorted array so a single ``np.searchsorted`` answers a query for every
-learner at once.
+learner at once; the scalar queries of ``LearnerTrace`` (a ``bisect`` per
+call) serve the legacy engine (``SimConfig(fast_path=False)``) and agree
+with the bank's element for element.
 """
 from __future__ import annotations
+
+import bisect
 
 import numpy as np
 
@@ -45,9 +49,34 @@ class LearnerTrace:
             avail = not avail
         self.states.append(avail)
 
+    def available(self, t: float) -> bool:
+        i = bisect.bisect_right(self.boundaries, t) - 1
+        return self.states[min(i, len(self.states) - 1)]
+
+    def available_through(self, t0: float, t1: float) -> bool:
+        """True if available for the whole window (no dropout mid-round)."""
+        i0 = bisect.bisect_right(self.boundaries, t0) - 1
+        i1 = bisect.bisect_right(self.boundaries, t1) - 1
+        return i0 == i1 and self.states[min(i0, len(self.states) - 1)]
+
+    def next_unavailable_after(self, t: float) -> float:
+        i = bisect.bisect_right(self.boundaries, t) - 1
+        if not self.states[min(i, len(self.states) - 1)]:
+            return t
+        return self.boundaries[i + 1] if i + 1 < len(self.boundaries) else float("inf")
+
 
 class AlwaysAvailable:
     """Trace of a learner that never goes away (static availability)."""
+
+    def available(self, t):
+        return True
+
+    def available_through(self, t0, t1):
+        return True
+
+    def next_unavailable_after(self, t):
+        return float("inf")
 
 
 class TraceBank:

@@ -112,6 +112,10 @@ class SweepRunner:
     telemetry: Optional[object] = None
 
     def __post_init__(self):
+        for c in self.cells:
+            if not c.config.fast_path:
+                raise ValueError(f"cell {c.name}: the batched sweep executor "
+                                 "requires fast_path=True")
         if self.mesh is None and (self.shard or self.shard_participants):
             n = n_ranks()
             if not self.shard:

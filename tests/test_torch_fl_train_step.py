@@ -30,7 +30,8 @@ seed; the reference's steps are jitted.  Held:
 - ``default_cohort`` == the reference's for all ten published configs,
   counted from shapes (the reference's ``jax.eval_shape``) as meta tensors:
   no weights are built;
-- the CLI on ``--device cpu``; ``param_specs`` other than None raises;
+- the CLI on ``--device cpu``; ``param_specs`` accepted, and a placed
+  step refusing plain tensors;
 - kernels 8 and 9 on CUDA operands (``FakeTensorMode``'s, on this
   CPU-only build) raise ``NotImplementedError`` before a launch when
   autograd would record the call, and reach the launch (stood in for)
@@ -272,9 +273,25 @@ def test_cli_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
 
 
 def test_param_specs_name_their_roadmap_item():
-    cfg = tget("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 15\)"):
-        ttrain.make_fl_train_step(cfg, param_specs={"embed": None})
+    """Item 15's placements are ported: ``param_specs`` from
+    ``launch.shardings.param_pspecs`` are accepted and place the step, which
+    then takes DTensors only (a plain parameter tree raises, naming them;
+    ``tests/test_torch_launch_layer.py`` runs the placed step)."""
+    from repro_torch.launch.shardings import param_pspecs
+    from repro_torch.models.transformer import shape_params
+
+    class Mesh:
+        shape, axis_names = {"data": 1, "model": 1}, ("data", "model")
+    cfg = dataclasses.replace(tget("internlm2-1.8b"), param_dtype=torch.float32)
+    specs = param_pspecs(cfg, shape_params(cfg), Mesh())
+    for cohort in ("vmap", "stream"):
+        step = ttrain.make_fl_train_step(cfg, cohort=cohort, param_specs=specs)
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        batch = {k: torch.zeros((2, 1, 8), dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        with pytest.raises(TypeError, match="DTensor"):
+            step(params, batch, torch.ones(2, dtype=torch.bool),
+                 torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError):
         ttrain.make_fl_train_step(cfg, cohort="scan")
 

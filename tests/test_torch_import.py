@@ -65,7 +65,9 @@ def test_no_source_mentions_jax_or_reference_imports():
                  "data.synthetic", "federated_lm", "device", "optim",
                  "optim.sgd", "optim.schedules", "launch.train",
                  "sim.participant_sharding", "sweeps.sharding",
-                 "models.shard_hints"):
+                 "models.shard_hints", "core.selection", "roofline",
+                 "roofline.analysis", "roofline.dispatch_cost", "launch.mesh",
+                 "launch.shardings", "launch.dryrun"):
         assert f"repro_torch.{name}" in names
 
 
@@ -98,18 +100,18 @@ def test_simulator_needs_a_gpu_or_an_explicit_cpu(monkeypatch):
     (dict(shard_participants=2), 14),
 ])
 def test_out_of_slice_configs_name_their_roadmap_item(override, item):
-    """Item 15's legacy engine still raises, naming its item; item 14's
-    participant sharding is ported: the config is accepted and runs (in a
-    plain process, on one shard, as the reference clamps to its one
-    device)."""
-    if item == 14:
-        cfg = SimConfig(n_learners=10, rounds=2, eval_every=1, n_target=3,
-                        dynamic_availability=False, **override)
-        assert Simulator(cfg, device="cpu").run().summary()["rounds"] == 2
-        return
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP\.md queue 1 item {item}\)"):
-        SimConfig(**override)
+    """Both configurations that once raised are ported: item 14's
+    participant sharding (in a plain process, on one shard, as the
+    reference clamps to its one device) and item 15's legacy pytree
+    engine are accepted and run, and no configuration error names a
+    ROADMAP item any more."""
+    cfg = SimConfig(n_learners=10, rounds=2, eval_every=1, n_target=3,
+                    dynamic_availability=False, **override)
+    sim = Simulator(cfg, device="cpu")
+    assert sim.run().summary()["rounds"] == 2
+    if item == 15:
+        assert sim.forecasters is not None and isinstance(sim.params, dict)
+    assert "ROADMAP" not in (PKG / "sim" / "engine.py").read_text()
 
 
 TINY_LM = (("d_ff", 8), ("d_model", 4), ("n_heads", 1), ("n_layers", 1))

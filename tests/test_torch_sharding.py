@@ -352,18 +352,35 @@ def test_runner_rejects_bad_composition():
 
 
 def test_shard_hints_identity_state_and_raise():
+    """With no axes the hints are the identity; with axes configured they
+    pin a DTensor's batch dim to the batch axes (or its expert dim to
+    "model"), as ``with_sharding_constraint`` does in the reference, and
+    raise on a plain tensor, which has no placement to pin."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import fake_group
+    from repro_torch.launch.shardings import P, distribute
+    from torch.distributed.device_mesh import init_device_mesh
     x = torch.ones(2, 3, 4)
     assert shard_hints.constrain_activations(x) is x
     assert shard_hints.constrain_expert_dim(x, 1) is x
     with shard_hints.hints(batch_axes=("data",), model_axis="model"):
         assert shard_hints._STATE == {"batch_axes": ("data",),
                                       "model_axis": "model"}
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue 1 item 15\)"):
+        with pytest.raises(TypeError, match="DTensor"):
             shard_hints.constrain_activations(x)
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue 1 item 15\)"):
+        with pytest.raises(TypeError, match="DTensor"):
             shard_hints.constrain_expert_dim(x, 1)
+        with fake_group(4):
+            mesh = init_device_mesh("cpu", (2, 2),
+                                    mesh_dim_names=("data", "model"))
+            t = distribute({"t": torch.empty(4, 8, 6, 16, device="meta")},
+                           {"t": P(None, None, None, "model")}, mesh)["t"]
+            pinned = shard_hints.constrain_activations(t)
+            assert tuple(pinned.placements) == (Shard(1), Replicate())
+            assert tuple(pinned.to_local().shape) == (4, 4, 6, 16)
+            e = shard_hints.constrain_expert_dim(t, 0)
+            assert tuple(e.placements) == (Replicate(), Shard(0))
     assert shard_hints._STATE == {"batch_axes": None, "model_axis": None}
     shard_hints.configure(model_axis="model")
     try:
