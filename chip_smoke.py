@@ -185,10 +185,13 @@ From the repository root, with nothing built beforehand.  It
      a trimmed_mean cell at ``fast_path=False`` (kernel 3, kernel 7 once
      an aggregating round; host records == the fused run's), the REDUCED
      internlm2 train step placed on a one-rank (1, 1) NCCL mesh == the
-     unplaced step, and the dispatch counter's FLOPs of the full-width
-     vmap round; and last, after every timed phase, the pod dry run's
-     required combinations on both meshes in this process
-     (``dryrun_paths``: host-only, the fake pod group made and destroyed).
+     unplaced step, the REDUCED qwen2.5-32b, deepseek-v2-lite-16b (naive
+     and absorbed MLA decode), jamba-v0.1-52b and internlm2-1.8b prefill,
+     decode step and train step (both cohorts) placed there == unplaced,
+     and the dispatch counter's FLOPs of the full-width vmap round; and
+     last, after every timed phase, the pod dry run's ``SMOKE``
+     combinations on both meshes in this process (``dryrun_paths``:
+     host-only, the fake pod group made and destroyed).
 It exits non-zero, printing no result, on any failure or without a GPU.
 The next-to-last line is the per-kernel JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -364,6 +367,10 @@ PROFILE_REQUESTS = dict(prompt=4, gen=4)
 # the reference's CLI marks one), a local batch of 1 x 4,096 tokens each,
 # one local step, rule relay; the vmap cohort warm once, then timed
 TRAIN_ARCH = "internlm2-1.8b"
+# (d): the layouts the dry run places, run on the card (arch, config overrides)
+PLACED_ARCHS = (("qwen2.5-32b", {}), ("deepseek-v2-lite-16b", {}),
+                ("deepseek-v2-lite-16b", {"mla_absorb": True}),
+                ("jamba-v0.1-52b", {}), ("internlm2-1.8b", {}))
 TRAIN_P = 4
 TRAIN_TAU = 2
 TRAIN_BATCH = (1, 4_096)
@@ -4218,7 +4225,12 @@ def legacy_launch_paths(torch, launches, gpu, sims, runs, paths, train):
     == the fused run's.  ((c), the dry run, is ``dryrun_paths``, after
     every timed phase.)  (d) the REDUCED internlm2 fp32
     train step with ``param_specs`` on a one-rank (1, 1) NCCL mesh, new
-    params bit for bit the unplaced step's; and the dispatch counter's
+    params bit for bit the unplaced step's; on that mesh the layouts the
+    dry run places (``PLACED_ARCHS``: uneven kv groups, MLA naive and
+    absorbed, Mamba with MoE, internlm2's vmap cohort with its prefill and
+    decode), each REDUCED fp32 prefill, decode step and
+    train step (vmap and stream) with the pod layout's pins on, bit for
+    bit the unplaced ones (``placed_layouts``); and the dispatch counter's
     FLOPs of the train phase's full-width vmap round (on meta tensors)
     beside 6 N T and the measured round time."""
     import dataclasses
@@ -4332,6 +4344,7 @@ def legacy_launch_paths(torch, launches, gpu, sims, runs, paths, train):
             out["placed"][cohort] = {"bitwise": same, "max_abs": err}
             print(f"placed train step ({cohort}, REDUCED {TRAIN_ARCH} fp32, one-rank "
                   "(1, 1) NCCL mesh): new params == the unplaced step's, bit for bit")
+        out["placed_layouts"] = placed_layouts(torch, mesh)
     finally:
         dist.destroy_process_group()
 
@@ -4367,33 +4380,122 @@ def legacy_launch_paths(torch, launches, gpu, sims, runs, paths, train):
     return out
 
 
+def placed_layouts(torch, mesh) -> dict:
+    """(d) On the one-rank (1, 1) NCCL ``mesh``: for each of
+    ``PLACED_ARCHS`` (REDUCED, fp32) the prefill, a decode step and the
+    train step in both cohorts, params placed by ``param_pspecs`` and the
+    inputs on "data", run with the pod layout's pins on (``shard_hints``)
+    and held bit for bit to the same call on plain tensors; no kernel may
+    launch (the REDUCED configs' paths run none)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import base, get_reduced
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.train import make_fl_train_step
+    from repro_torch.models import init_params, shard_hints
+    from repro_torch.models.transformer import decode_step, init_decode_state, prefill
+
+    full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    flat = lambda tree: [full(t) for t in sh.leaves(tree)]
+    out = {}
+    for arch, overrides in PLACED_ARCHS:
+        cfg = dataclasses.replace(get_reduced(arch), param_dtype=torch.float32,
+                                  **overrides)
+        name = arch + "".join(f" {k}={v}" for k, v in overrides.items())
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(11))
+        specs = sh.param_pspecs(cfg, params, mesh)
+        dparams = sh.distribute(params, specs, mesh)
+        g = torch.Generator(device="cuda").manual_seed(12)
+        tok = lambda *shape: torch.randint(0, cfg.vocab_size, shape, generator=g,
+                                           device="cuda", dtype=torch.int32)
+        place = lambda t, spec: sh.distribute({"x": t}, {"x": spec}, mesh)["x"]
+        pins = dict(batch_axes=("data",), model_axis="model")
+        res = {}
+        LAUNCHES.clear()
+        with torch.no_grad():
+            batch = {"tokens": tok(2, 64), "labels": tok(2, 64)}
+            want = prefill(cfg, params, batch)
+            with shard_hints.hints(**pins), implicit_replication():
+                got = prefill(cfg, dparams, {k: place(v, sh.P("data", None))
+                                             for k, v in batch.items()})
+            res["prefill"] = (flat(list(got)), flat(list(want)))
+            spec = sh.input_specs(cfg, base.InputShape("decode", 64, 2, "decode"), mesh)
+            state = init_decode_state(cfg, 2, 64, device="cuda")
+            tokens, pos = tok(2), torch.tensor([5, 40], dtype=torch.int32, device="cuda")
+            want = decode_step(cfg, params, state, tokens, pos)
+            with shard_hints.hints(**pins), implicit_replication():
+                got = decode_step(cfg, dparams, sh.distribute(state, spec.arg_specs["state"], mesh),
+                                  place(tokens, spec.arg_specs["tokens"]),
+                                  place(pos, spec.arg_specs["position"]))
+            res["decode"] = (flat(list(got)), flat(list(want)))
+        batch = {"tokens": tok(4, 2, 32), "labels": tok(4, 2, 32)}
+        fresh = torch.tensor([True, False, True, True], device="cuda")
+        tau = torch.tensor([0, 2, 0, 0], dtype=torch.int32, device="cuda")
+        for cohort in ("vmap", "stream"):
+            lead = sh.P("data", None, None) if cohort == "vmap" else sh.P(None, "data", None)
+            want = make_fl_train_step(cfg, cohort=cohort)(params, batch, fresh, tau)
+            with shard_hints.hints(batch_axes=("data",) if cohort == "stream" else None,
+                                   model_axis="model"):
+                got = make_fl_train_step(cfg, cohort=cohort, param_specs=specs)(
+                    dparams, {k: place(v, lead) for k, v in batch.items()}, fresh, tau)
+            res[f"train {cohort}"] = (flat(list(got)), flat(list(want)))
+        torch.cuda.synchronize()
+        rec = {}
+        for kind, (got, want) in res.items():
+            same = len(got) == len(want) and all(
+                a.shape == b.shape and bits_equal(torch, a, b) for a, b in zip(got, want))
+            err = max(((a.double() - b.double()).abs().max().item() for a, b in zip(got, want)
+                       if a.is_floating_point() and a.numel() and a.shape == b.shape),
+                      default=0.0)
+            if not same:
+                fail(f"placed layouts (d) {name} {kind}: differs from the unplaced call "
+                     f"by {err}")
+            rec[kind] = {"bitwise": same, "max_abs": err, "leaves": len(got)}
+        if LAUNCHES:
+            fail(f"placed layouts (d) {name}: launched {dict(LAUNCHES)}")
+        out[name] = rec
+        print(f"placed layouts (d) {name} (REDUCED fp32, one-rank (1, 1) NCCL mesh, "
+              f"pins on): prefill, decode step, train step vmap and stream == the "
+              f"unplaced calls, bit for bit ({sum(r['leaves'] for r in rec.values())} "
+              "tensors)", flush=True)
+    return out
+
+
 def dryrun_paths():
-    """(c) The dry run's required combinations (``repro_torch.launch.dryrun``
-    ``REQUIRED``) on both meshes, in this process: each ``lower_one``
-    creates its fake pod group and destroys it.  Host-only minutes, so it
-    runs after every timed phase.  Each step must be counted, with FLOPs
-    and bytes a chip above 0; per-shard argument bytes, FLOPs, bytes and
-    collective bytes a chip by kind and the roofline's bottleneck printed."""
+    """(c) The dry run's ``SMOKE`` combinations (``repro_torch.launch.dryrun``)
+    on both meshes, in this process: each ``lower_one`` creates its fake
+    pod group and destroys it.  Host-only, so it runs after every timed
+    phase.  Each step must be counted, with FLOPs and bytes a chip above 0
+    and the model's FLOPs over the counted ones in (0, 1.05]
+    (``dryrun.useful_ok``); per-shard
+    argument bytes, FLOPs, bytes and collective bytes a chip by kind, the
+    roofline's bottleneck and the mesh each was counted on printed.  The
+    rest of the grid runs as its own command
+    (``python -m repro_torch.launch.dryrun --arch all --shape all
+    --both-meshes``)."""
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun as dr
     t0 = time.perf_counter()
     recs = []
-    for arch, shape, cohort in sorted(dr.REQUIRED):
+    for arch, shape, cohort in dr.SMOKE:
         for multi_pod in (False, True):
-            rec = dr.lower_one(arch, shape, multi_pod=multi_pod,
-                               cohort=cohort if cohort != "-" else "auto",
+            rec = dr.lower_one(arch, shape, multi_pod=multi_pod, cohort=cohort,
                                save=False, verbose=False)
             if dist.is_initialized():
                 fail("dry run: the fake pod group outlived its combination")
             name = f"dry run {rec['arch']} {rec['shape']} mesh {rec['mesh']}"
             if rec.get("step") != "counted":
                 fail(f"{name}: step not run: {rec.get('error')}")
-            if not (rec["flops_per_chip"] > 0 and rec["bytes_per_chip"] > 0):
+            if not (rec["flops_per_chip"] > 0 and rec["bytes_per_chip"] > 0
+                    and dr.useful_ok(rec, dr.get_config(arch))):
                 fail(f"{name}: counted {rec['flops_per_chip']} FLOPs, "
-                     f"{rec['bytes_per_chip']} bytes")
+                     f"{rec['bytes_per_chip']} bytes, useful ratio "
+                     f"{rec['roofline']['useful_ratio']}")
             coll = {k: v for k, v in rec["collectives"].items() if k != "total"}
-            print(f"{name} ({rec['cohort']}): args/chip "
+            print(f"{name} ({rec['cohort']}, counted on {rec['counted_on']}): args/chip "
                   f"{rec['arg_bytes_per_chip']['total']:.4e} B, FLOPs/chip "
                   f"{rec['flops_per_chip']:.4e}, bytes/chip "
                   f"{rec['bytes_per_chip']:.4e}, collective bytes/chip {coll}, "

@@ -198,18 +198,212 @@ def make_fl_train_step_yogi(cfg: ModelConfig, *, yogi_lr: float = 1e-2,
     return step
 
 
-def _stacked_empty(leaf, P: int):
-    """An uninitialised fp32 (P, *leaf.shape) buffer on ``leaf``'s device;
-    for a DTensor, a DTensor on its mesh placed as ``leaf`` one dim on."""
-    shape = (P,) + tuple(leaf.shape)
-    from torch.distributed.tensor import DTensor
-    if not isinstance(leaf, DTensor):
-        return torch.empty(shape, dtype=torch.float32, device=leaf.device)
-    from torch.distributed.tensor import Shard
-    from torch.distributed.tensor import empty as dt_empty
-    return dt_empty(shape, dtype=torch.float32, device_mesh=leaf.device_mesh,
-                    placements=[Shard(p.dim + 1) if p.is_shard() else p
-                                for p in leaf.placements])
+class _Unplaced:
+    """The vmap step's view of a cohort whose params are plain tensors:
+    every participant is this process's (``P_local = P``, ``off = 0``), and
+    every collective is the identity."""
+
+    def __init__(self, params, batch, fresh, tau):
+        self.params, self.batch, self.fresh, self.tau = params, batch, fresh, tau
+        self.leaves = tree_leaves(params)
+        self.P_loc, self.off = fresh.shape[0], 0
+
+    def participant(self, i):
+        """(params, batch) of the ``i``-th local participant."""
+        return self.params, _participant(self.batch, i)
+
+    def local(self, k, d):
+        """Leaf ``k`` of a participant's delta as this chip's tensor."""
+        return d
+
+    def loss(self, loss):
+        return loss
+
+    def model_sharded(self, k) -> bool:
+        """Whether leaf ``k``'s squared sums are partial over the model axis."""
+        return False
+
+    def sum_participants(self, t):
+        return t
+
+    def sum_model(self, t):
+        return t
+
+    def gather_participants(self, t):
+        return t
+
+    def agg(self, k, t):
+        """Leaf ``k`` of the aggregate, from this chip's summed tensor."""
+        return t
+
+    def deltas(self, k, d):
+        """Leaf ``k`` of the (P, ...) deltas, from this chip's buffer."""
+        return d
+
+
+class _Placed(_Unplaced):
+    """The vmap cohort placed as the reference's ``vmap`` over a
+    participant axis sharded on the batch axes: each chip runs only its own
+    participants (``P / shards`` of them), each on the ``model`` sub-mesh
+    (params as their model-axis shards, the participant's batch replicated
+    there), and keeps their (P_local, ...) fp32 delta shards.  Its
+    collectives are explicit functional ones, as DTensor's own, so the
+    counter sees them: the fresh average's partial sums all-reduced over
+    the batch axes (``pdims``), each participant's squared distances and
+    ||u_hat||^2 over the model axis (``mdim``, model-sharded leaves only),
+    the (P,) distances and losses all-gathered, the weighted aggregate
+    all-reduced over the batch axes into the params' placements.  A mesh
+    dim of one rank is left out (nothing to move).  The params must be
+    replicated over the batch axes (no FSDP: the vmap cohort runs below
+    ``STREAM_THRESHOLD``), the batch split on its participant dim only."""
+
+    def __init__(self, params, batch, fresh, tau):
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        self.funcol, self.DTensor = funcol, DTensor
+        self.Replicate, self.Shard = Replicate, Shard
+        leaves = tree_leaves(params)
+        if not all(isinstance(w, DTensor) for w in leaves):
+            raise TypeError("param_specs place the step on a DeviceMesh: the "
+                            "params must be DTensors (launch.shardings."
+                            "distribute), got a plain tensor")
+        self.mesh = mesh = leaves[0].device_mesh
+        mdim = mesh.mesh_dim_names.index("model")
+        for w in leaves:
+            if any(not p.is_replicate() for i, p in enumerate(w.placements)
+                   if i != mdim and mesh.size(i) > 1):
+                raise ValueError("the placed vmap cohort takes params replicated "
+                                 f"over the batch axes, got {w.placements}")
+        pdims = set()
+        for v in batch.values():
+            for i, p in enumerate(v.placements):
+                if p.is_shard(0):
+                    pdims.add(i)
+                elif not p.is_replicate() and mesh.size(i) > 1:
+                    raise ValueError("the placed vmap cohort splits the batch on "
+                                     f"its participant dim only, got {v.placements}")
+        self.pdims = [i for i in sorted(pdims) if mesh.size(i) > 1]
+        self.model_dim = mdim
+        self.mdim = mdim if mesh.size(mdim) > 1 else None
+        self.placements = [w.placements for w in leaves]
+        # the (P,) masks are replicated: each chip holds them whole
+        self.fresh, self.tau = (t.full_tensor() if isinstance(t, DTensor) else t
+                                for t in (fresh, tau))
+        self.local_batch = {k: v.to_local() for k, v in batch.items()}
+        self.P_loc = next(iter(self.local_batch.values())).shape[0]
+        coord, flat = mesh.get_coordinate(), 0
+        for i in sorted(pdims):
+            flat = flat * mesh.size(i) + coord[i]
+        self.off = flat * self.P_loc
+        self.sub = mesh["model"]
+        self.params = tree_map(lambda w: DTensor.from_local(
+            w.to_local(), self.sub, [w.placements[mdim]], run_check=False), params)
+        self.sub_placements = [w.placements for w in tree_leaves(self.params)]
+        self.leaves = [w.to_local() for w in leaves]
+
+    def participant(self, i):
+        return self.params, {k: self.DTensor.from_local(
+            v[i], self.sub, [self.Replicate()], run_check=False)
+            for k, v in self.local_batch.items()}
+
+    def local(self, k, d):
+        return d.redistribute(self.sub, self.sub_placements[k]).to_local()
+
+    def loss(self, loss):
+        return loss.full_tensor() if isinstance(loss, self.DTensor) else loss
+
+    def model_sharded(self, k):
+        return self.mdim is not None and self.placements[k][self.mdim].is_shard()
+
+    def sum_participants(self, t):
+        for i in self.pdims:
+            t = self.funcol.all_reduce(t, "sum", self.mesh.get_group(i))
+        return t
+
+    def sum_model(self, t):
+        if self.mdim is None:
+            return t
+        return self.funcol.all_reduce(t, "sum", self.mesh.get_group(self.mdim))
+
+    def gather_participants(self, t):
+        """(P_local,) -> (P,), in the participant axis' order (the last
+        splitting dim is the innermost)."""
+        for i in reversed(self.pdims):
+            t = self.funcol.all_gather_tensor(t, 0, self.mesh.get_group(i))
+        return t
+
+    def agg(self, k, t):
+        return self.DTensor.from_local(t, self.mesh, self.placements[k],
+                                       run_check=False)
+
+    def deltas(self, k, d):
+        pl = [self.Shard(0) if i in self.pdims else
+              (self.Shard(p.dim + 1) if p.is_shard() else p) if i == self.model_dim
+              else self.Replicate() for i, p in enumerate(self.placements[k])]
+        return self.DTensor.from_local(d, self.mesh, pl, run_check=False)
+
+
+def _vmap_step(delta_fn, params, batch, fresh, tau, *, rule, beta, placed,
+               deltas_out=None):
+    """The vmap cohort: the P participants' fp32 deltas stacked leaf by leaf
+    along a leading P axis, then the Lam / weights / aggregate pass over
+    them.  ``placed`` (params and batch DTensors) runs it as ``_Placed``
+    says, each chip on its own participants and delta shards; on one rank
+    every collective is the identity and the ops are the unplaced step's,
+    in its order: the same bits.  ``deltas_out`` (a dict) receives the
+    (P, ...) fp32 deltas."""
+    c = (_Placed if placed else _Unplaced)(params, batch, fresh, tau)
+    fresh, tau, P_loc, off = c.fresh, c.tau, c.P_loc, c.off
+    d_loc = [torch.empty((P_loc,) + tuple(w.shape), dtype=torch.float32,
+                         device=w.device) for w in c.leaves]
+    losses = []
+    for i in range(P_loc):
+        delta, loss = delta_fn(*c.participant(i))
+        with torch.no_grad():
+            for k, (buf, d) in enumerate(zip(d_loc, tree_leaves(delta))):
+                buf[i].copy_(c.local(k, d))
+        losses.append(c.loss(loss))
+        del delta
+    with torch.no_grad():
+        fresh_f = fresh.float()
+        n_f = torch.clamp(fresh_f.sum(), min=1.0)
+        fresh_loc = fresh_f[off:off + P_loc]
+        # u_hat leaf by leaf, never the whole tree at once:
+        # Lam_s = ||u_hat - (u_s + n_F u_hat)/(n_F+1)||^2 / ||u_hat||^2
+        #       = ||u_hat - u_s||^2 / ((n_F+1)^2 ||u_hat||^2)
+        # each sum split in two: the model-sharded leaves' partial sums apart
+        # from the whole leaves' sums
+        acc = {s: [torch.zeros(P_loc, dtype=torch.float32, device=fresh.device),
+                   0.0] for s in (False, True)}
+        for k, d in enumerate(d_loc):
+            h = c.sum_participants(torch.tensordot(fresh_loc, d, dims=1)) / n_f
+            part = acc[c.model_sharded(k)]
+            part[0] = part[0] + torch.stack(
+                [torch.sum((h - d[j]) ** 2) for j in range(P_loc)])
+            part[1] = part[1] + torch.sum(torch.square(h))
+            del h
+        diff_sq, uhat_sq = acc[False]
+        if isinstance(acc[True][1], torch.Tensor):      # a model-sharded leaf
+            diff_sq = diff_sq + c.sum_model(acc[True][0])
+            uhat_sq = uhat_sq + c.sum_model(acc[True][1])
+        diff_sq = c.gather_participants(diff_sq)
+        lam = diff_sq / ((n_f + 1.0) ** 2 * (uhat_sq + EPS))
+        lam = torch.where(fresh, torch.zeros_like(lam), lam)
+        w_all = _relay_weights(fresh, tau, lam, rule=rule, beta=beta)
+        w_loc = w_all[off:off + P_loc]
+        agg = [c.agg(k, c.sum_participants(torch.tensordot(w_loc, d, dims=1)))
+               for k, d in enumerate(d_loc)]
+        loss = c.gather_participants(torch.stack(losses)).mean()
+    if deltas_out is not None:
+        deltas_out["deltas"] = _tree_like(params, [c.deltas(k, d)
+                                                   for k, d in enumerate(d_loc)])
+    return _tree_like(params, agg), {"loss": loss, "weights": w_all}
+
+
+def _tree_like(tree, flat: list):
+    """``flat`` (in ``tree_leaves(tree)``'s order) in ``tree``'s structure."""
+    of = {id(w): x for w, x in zip(tree_leaves(tree), flat)}
+    return tree_map(lambda w: of[id(w)], tree)
 
 
 def _make_step_impl(cfg: ModelConfig, *, local_lr, rule, beta, local_steps,
@@ -217,37 +411,9 @@ def _make_step_impl(cfg: ModelConfig, *, local_lr, rule, beta, local_steps,
     delta_fn = _participant_delta_fn(cfg, local_lr, local_steps, param_specs)
 
     def vmap_step(params, batch, fresh, tau, *, deltas_out=None):
-        """``deltas_out`` (a dict) receives the (P, ...) fp32 deltas."""
-        P = fresh.shape[0]
-        deltas = tree_map(lambda l: _stacked_empty(l, P), params)
-        losses = []
-        for i in range(P):
-            delta, loss = delta_fn(params, _participant(batch, i))
-            with torch.no_grad():
-                tree_map(lambda d, u: d[i].copy_(u), deltas, delta)
-            losses.append(loss)
-            del delta
-        with torch.no_grad():
-            fresh_f = fresh.float()
-            n_f = torch.clamp(fresh_f.sum(), min=1.0)
-            # u_hat leaf by leaf, never the whole tree at once:
-            # Lam_s = ||u_hat - (u_s + n_F u_hat)/(n_F+1)||^2 / ||u_hat||^2
-            #       = ||u_hat - u_s||^2 / ((n_F+1)^2 ||u_hat||^2)
-            diff_sq = torch.zeros(P, dtype=torch.float32, device=fresh.device)
-            uhat_sq = 0.0
-            for d in tree_leaves(deltas):
-                h = torch.tensordot(fresh_f, d, dims=1) / n_f
-                diff_sq = diff_sq + torch.stack(
-                    [torch.sum((h - d[j]) ** 2) for j in range(P)])
-                uhat_sq = uhat_sq + torch.sum(torch.square(h))
-                del h
-            lam = diff_sq / ((n_f + 1.0) ** 2 * (uhat_sq + EPS))
-            lam = torch.where(fresh, torch.zeros_like(lam), lam)
-            w = _relay_weights(fresh, tau, lam, rule=rule, beta=beta)
-            agg = tree_map(lambda d: torch.tensordot(w, d, dims=1), deltas)
-        if deltas_out is not None:
-            deltas_out["deltas"] = deltas
-        return agg, {"loss": torch.stack(losses).mean(), "weights": w}
+        return _vmap_step(delta_fn, params, batch, fresh, tau, rule=rule,
+                          beta=beta, placed=param_specs is not None,
+                          deltas_out=deltas_out)
 
     def stream_step(params, batch, fresh, tau):
         P = fresh.shape[0]

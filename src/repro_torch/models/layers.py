@@ -36,6 +36,39 @@ def embed_init(gen: torch.Generator, shape, dtype):
 
 
 # ---------------------------------------------------------------------------
+# Placed (DTensor) gradients
+# ---------------------------------------------------------------------------
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a gradient whose local shard
+    is contiguous."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        local = g.to_local() if hasattr(g, "to_local") else g
+        return g if local.is_contiguous() else g.clone(
+            memory_format=torch.contiguous_format)
+
+
+def contiguous_grad(t):
+    """``t``, whose gradient (under autograd) arrives with a contiguous
+    local shard.  A permute or transpose in the forward (a batched
+    product's, a time-first scan's) gives a gradient of permuted layout,
+    whose view in the backward a plain tensor copies where it must and a
+    DTensor refuses: DTensor decides view or copy on its global strides
+    and then views the local shard.  Plain tensors take the same copy, so
+    a placed step computes on the same layouts as the plain one."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _ContiguousGrad.apply(t)
+    return t
+
+
+# ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
 

@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init
+from repro_torch.models import shard_hints
+from repro_torch.models.layers import contiguous_grad, dense_init
 
 SCAN_CHUNK = 256  # steps whose decays, inputs and states are held at once
 
@@ -44,7 +45,9 @@ def mamba_init(gen, d_model: int, *, d_state: int = 16, expand: int = 2,
 
 def _ssm_inputs(params, xs, dt_rank, d_state):
     """xs: (B, S, d_inner) post-conv activations -> (dt, Bmat, Cmat), fp32."""
-    xdb = xs @ params["w_x"]
+    # placed, w_x splits its rows over the model axis: the product's partial
+    # sums are added before the split into dt, B and C
+    xdb = shard_hints.reduced(xs @ params["w_x"])
     dt_low, Bm, Cm = torch.split(xdb, [dt_rank, d_state, d_state], dim=-1)
     dt = F.softplus((dt_low @ params["w_dt"]).float() + params["dt_bias"])
     return dt, Bm.float(), Cm.float()
@@ -82,10 +85,10 @@ def mamba_forward(params, x, *, d_state: int = 16, expand: int = 2,
     dt_rank = dt_rank or max(1, d // 16)
     xs, z = (x @ params["w_in"]).chunk(2, dim=-1)     # (B, S, d_inner) each
 
-    # causal conv1d over time
+    # causal conv1d over time; a fresh state's zeros take the activation's
+    # shard shapes and placement (a DTensor's zeros_like is one)
     conv_prev = (state["conv"] if state is not None
-                 else torch.zeros((B, conv_width - 1, d_inner), dtype=xs.dtype,
-                                  device=x.device))
+                 else torch.zeros_like(xs[:, :1]).expand(B, conv_width - 1, d_inner))
     xpad = torch.cat([conv_prev, xs], dim=1)          # (B, S+W-1, d_inner)
     cw = params["conv_w"]
     xc = sum(xpad[:, i:i + S] * cw[i] for i in range(conv_width)) + params["conv_b"]
@@ -95,8 +98,10 @@ def mamba_forward(params, x, *, d_state: int = 16, expand: int = 2,
     dt, Bm, Cm = _ssm_inputs(params, xc, dt_rank, d_state)
     A = -torch.exp(params["A_log"])                   # (d_inner, N)
     h0 = (state["ssm"] if state is not None
-          else torch.zeros((B, d_inner, d_state), dtype=torch.float32, device=x.device))
+          else torch.zeros_like(xc[:, 0], dtype=torch.float32)[..., None].expand(
+              B, d_inner, d_state))
     xcf = xc.float()
+    xcf, dt, Bm, Cm = (contiguous_grad(t) for t in (xcf, dt, Bm, Cm))
     ys, h_fin = _scan(xcf, dt, Bm, Cm, A, h0)
     y = ys + params["D"] * xcf
     out = (y.to(x.dtype) * F.silu(z)) @ params["w_out"]

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import shard_hints
-from repro_torch.models.layers import dense_init, mlp, mlp_init
+from repro_torch.models.layers import contiguous_grad, dense_init, mlp, mlp_init
 
 
 def moe_init(gen, d_model: int, moe_d_ff: int, n_experts: int,
@@ -78,6 +78,26 @@ def load_balance_loss(logits, top_idx, n_experts: int):
     return n_experts * torch.sum(f_e * p_e)
 
 
+def _zero_row(t):
+    """t (G, n, d) with a zero row after its last along dim 1: (G, n + 1, d)
+    (a concatenation: a placed (DTensor) pad is placed wrongly by some torch
+    versions)."""
+    return torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+
+
+def _expert_mm(h, w):
+    """(G, E, C, a) @ (E, a, b) -> (G, E, C, b): one product a expert,
+    (E, G C, a) @ (E, a, b).  Written out rather than as an einsum: a
+    placed (DTensor) einsum's backward views gradients of permuted layout,
+    which DTensor refuses (``layers.contiguous_grad``)."""
+    G, E, C, a = h.shape
+    # clone, not contiguous(): a DTensor judges contiguity on its global
+    # strides, which need not be its local shard's
+    h = h.transpose(0, 1).clone(memory_format=torch.contiguous_format)
+    out = torch.bmm(h.reshape(E, G * C, a), w)
+    return contiguous_grad(out.reshape(E, G, C, w.shape[-1])).transpose(0, 1)
+
+
 def moe_forward(params, x, *, n_experts: int, top_k: int,
                 capacity_factor: float = 1.25, group_size: int = 4096):
     """x: (B, S, d). Returns (out, aux_loss).
@@ -91,7 +111,7 @@ def moe_forward(params, x, *, n_experts: int, top_k: int,
     g = min(group_size, N)
     pad = (-N) % g
     if pad:
-        xf = F.pad(xf, (0, 0, 0, pad))
+        xf = torch.cat([xf, torch.zeros_like(xf[:pad])])
     G = xf.shape[0] // g
     xg = xf.reshape(G, g, d)
     k = top_k
@@ -115,17 +135,19 @@ def moe_forward(params, x, *, n_experts: int, top_k: int,
                    device=x.device), 1, place,
         torch.arange(g * k, device=x.device).expand(G, g * k))[:, :-1]
 
-    x_rep = F.pad(xg[:, :, None, :].expand(G, g, k, d).reshape(G, g * k, d),
-                  (0, 0, 0, 1))                               # (G, g*k+1, d)
+    x_rep = _zero_row(xg[:, :, None, :].expand(G, g, k, d).reshape(G, g * k, d))
     expert_in = torch.gather(x_rep, 1, src[..., None].expand(
         G, n_experts * cap, d)).reshape(G, n_experts, cap, d)  # (G,E,C,d)
     expert_in = shard_hints.constrain_expert_dim(expert_in, 1)
-    gate = F.silu(torch.einsum("gecd,edf->gecf", expert_in, params["w_gate"]))
-    up = torch.einsum("gecd,edf->gecf", expert_in, params["w_up"])
-    expert_out = torch.einsum("gecf,efd->gecd", gate * up, params["w_down"])
+    gate = F.silu(_expert_mm(expert_in, params["w_gate"]))
+    up = _expert_mm(expert_in, params["w_up"])
+    expert_out = _expert_mm(gate * up, params["w_down"])
     expert_out = shard_hints.constrain_expert_dim(expert_out, 1)
 
-    out_pad = F.pad(expert_out.reshape(G, n_experts * cap, d), (0, 0, 0, 1))
+    # every token reads its slots' experts: placed, the experts' outputs are
+    # gathered whole first (the combine's collective)
+    out_pad = _zero_row(shard_hints.gathered(expert_out).reshape(
+        G, n_experts * cap, d))
     out_tok = torch.gather(out_pad, 1, place[..., None].expand(G, g * k, d))
     out_tok = out_tok * (keep[..., None] * gates.reshape(G, g * k, 1)
                          ).to(expert_out.dtype)

@@ -303,18 +303,18 @@ def _layer_forward(cfg, spec, p, x, positions, state):
     h, new_state = _mixer_forward(cfg, spec, p["mixer"],
                                   L.rmsnorm(p["norm1"], x, cfg.norm_eps),
                                   positions, state)
-    x = x + h
+    x = x + shard_hints.reduced(h)
     h, aux = _ffn_forward(cfg, spec, p, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
-    return x + h, new_state, aux
+    return x + shard_hints.reduced(h), new_state, aux
 
 
 def _layer_decode(cfg, spec, p, x, position, state):
     h, new_state = _mixer_decode(cfg, spec, p["mixer"],
                                  L.rmsnorm(p["norm1"], x, cfg.norm_eps),
                                  position, state)
-    x = x + h
+    x = x + shard_hints.reduced(h)
     h, _ = _ffn_forward(cfg, spec, p, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
-    return x + h, new_state
+    return x + shard_hints.reduced(h), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -369,7 +369,11 @@ def _embed_inputs(cfg, params, batch):
     x = L.embed_lookup(params["embed"], batch["tokens"])
     if cfg.frontend == "vision":
         fe = fr.project_frontend(params["frontend"], batch["frontend_embeds"])
-        x = torch.cat([fe.to(x.dtype), x], dim=1)
+        # placed, both halves pinned alike first: DTensor has no concat of a
+        # batch-split half with a half of partial sums
+        fe, x = (shard_hints.constrain_activations(shard_hints.reduced(t))
+                 for t in (fe.to(x.dtype), x))
+        x = torch.cat([fe, x], dim=1)
     return x
 
 

@@ -115,12 +115,15 @@ def live_pairs(s, window) -> int:
     return w * (w + 1) // 2 + (s - w) * window
 
 
-def swa_cost(b, s, h, hkv, dh, window, elem):
+def swa_cost(b, s, h, hkv, dh, window, elem, dv=None):
     """(bytes, flops) sliding-window attention needs: q, k, v read once and
     the output written once (``elem`` bytes an element); per live pair
-    2 Dh flops for q.k and 2 Dh for p v (the exponentials are not counted)."""
-    return (elem * b * s * dh * (2 * h + 2 * hkv),
-            4 * dh * h * b * live_pairs(s, window))
+    2 Dh flops for q.k and 2 Dv for p v (the exponentials are not
+    counted).  ``dv``, v's and the output's head dim, is ``dh`` unless
+    given (MLA: q / k of nope + rope dims, v of ``v_head_dim``)."""
+    dv = dh if dv is None else dv
+    return (elem * b * s * (dh + dv) * (h + hkv),
+            2 * (dh + dv) * h * b * live_pairs(s, window))
 
 
 def wkv_cost(b, s, h, n, elem, with_s0):

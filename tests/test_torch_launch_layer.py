@@ -204,8 +204,8 @@ print("ok")
 
 def test_dryrun_reduced_config_on_a_fake_2x2_mesh(tmp_path):
     """The dry run's step on a REDUCED config on a fake (2, 2) mesh, in a
-    subprocess: the three kinds counted, records written, the group gone
-    after each."""
+    subprocess: the three kinds and both train cohorts counted, records
+    written, the group gone after each."""
     code = f"""
 import json, dataclasses, torch.distributed as dist
 from repro_torch.launch import dryrun, mesh
@@ -229,17 +229,20 @@ print(json.dumps([{{k: r.get(k) for k in ("shape", "cohort", "step", "chips",
 """
     recs = json.loads(_run(code, timeout=600).strip().splitlines()[-1])
     by = {(r["shape"], r["cohort"]): r for r in recs}
-    for key in [("train_4k", "stream"), ("prefill_32k", "-"),
-                ("decode_32k", "-")]:
+    assert len(recs) == len(by) == 4
+    for key in [("train_4k", "stream"), ("train_4k", "vmap"),
+                ("prefill_32k", "-"), ("decode_32k", "-")]:
         r = by[key]
         assert r["step"] == "counted" and r["chips"] == 4, r
         assert r["flops_per_chip"] > 0 and r["bytes_per_chip"] > 0
         assert r["arg_bytes_per_chip"]["total"] > r["arg_bytes_per_chip"]["params"]
         assert set(r["collectives"]) >= {"all-gather", "all-reduce",
                                          "reduce-scatter", "all-to-all"}
-    # the stream step pins its gradients to the params' placements
-    assert sum(by[("train_4k", "stream")]["collectives"].values()) > 0
-    assert by[("train_4k", "vmap")]["step"] == "not run"
+    # the stream step pins its gradients to the params' placements, the
+    # vmap step all-reduces its fresh average and aggregate over "data"
+    for cohort in ("stream", "vmap"):
+        assert by[("train_4k", cohort)]["collectives"]["total"] > 0
+    # the two train records share a file name: the vmap one is the last
     assert len(list(tmp_path.glob("*.json"))) == 3
 
 
